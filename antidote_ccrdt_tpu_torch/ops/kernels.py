@@ -1,0 +1,278 @@
+"""Wrappers of the hand-written CUDA kernels K1 (``scatter_max_rows_``) and
+K3 (``sort_slots``), with their plain PyTorch versions.
+
+A wrapper checks device, dtype, shape and contiguity and raises on what it
+does not take. For CUDA tensors it launches its kernel (built from
+``csrc/`` at first use) and adds one to its ``launches`` count; for CPU
+tensors it runs the plain version, which the CPU tests hold against the JAX
+package and ``chip_smoke.py`` holds against the kernel on the card. There
+is no other switch between the two.
+
+K2 (delta placement) lives in ``ops/delta_place.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..device import cuda_stream_handle
+from . import _build
+from .dense_table import NEG_INF
+
+I32 = torch.int32
+Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+MAX_SLOTS = 16  # K3 keeps one row's candidates in registers
+
+
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int]) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def kernel_device(*tensors: Optional[torch.Tensor]) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (plain version); raises for mixed or other devices. None entries are
+    skipped."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors lie on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+# --- comparator network ---------------------------------------------------
+
+
+def oddeven_network(n: int) -> List[Tuple[int, int]]:
+    """Batcher odd-even mergesort comparator pairs for `n` inputs.
+
+    Generated for the next power of two; pairs touching virtual inputs
+    >= n are dropped, which is sound because missing inputs rank strictly
+    last and a descending compare-exchange never moves a minimal element
+    up. (Port of ``ops/pallas_kernels.py:65``; ``csrc/sort_slots.cu``
+    spells out ``oddeven_network(8)`` and ``(16)``.)"""
+    m = 1
+    while m < n:
+        m *= 2
+    pairs: List[Tuple[int, int]] = []
+
+    def merge(lo: int, cnt: int, r: int) -> None:
+        step = r * 2
+        if step < cnt:
+            merge(lo, cnt, step)
+            merge(lo + r, cnt, step)
+            for i in range(lo + r, lo + cnt - r, step):
+                pairs.append((i, i + r))
+        else:
+            pairs.append((lo, lo + r))
+
+    def sort(lo: int, cnt: int) -> None:
+        if cnt > 1:
+            half = cnt // 2
+            sort(lo, half)
+            sort(lo + half, half)
+            merge(lo, cnt, 1)
+
+    sort(0, m)
+    return [(i, j) for (i, j) in pairs if j < n]
+
+
+# --- K1: tombstone row scatter-max ----------------------------------------
+
+
+def scatter_max_rows_(table: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """In place: ``table[r, rows[r, j]] = max(table[r, rows[r, j]], upd[r, j])``
+    for rows in [0, T); other rows are dropped. Duplicate rows are allowed.
+
+    table i32[R, T, D], rows i32[R, B], upd i32[R, B, D]; all contiguous.
+    Returns `table`."""
+    R, T, D = table.shape
+    B = rows.shape[-1]
+    _check("table", table, I32, (R, T, D))
+    _check("rows", rows, I32, (R, B))
+    _check("upd", upd, I32, (R, B, D))
+    if not kernel_device(table, rows, upd):
+        return scatter_max_rows_plain_(table, rows, upd)
+    if R * B * D == 0:
+        return table
+    fn = _build.load("scatter_max_rows", _K1_ARGS)
+    rc = fn(_ptr(table), _ptr(rows), _ptr(upd), R, T, D, B,
+            ctypes.c_void_p(cuda_stream_handle(table)))
+    _build.check(rc, "scatter_max_rows")
+    scatter_max_rows_.launches += 1
+    return table
+
+
+scatter_max_rows_.launches = 0
+_K1_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+
+
+def scatter_max_rows_plain_(table: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1: a row-wise ``index_reduce_`` amax over the
+    valid rows of the flattened [R*T, D] table."""
+    R, T, D = table.shape
+    valid = (rows >= 0) & (rows < T)
+    base = torch.arange(R, device=table.device, dtype=torch.int64)[:, None] * T
+    flat = (base + rows.to(torch.int64))[valid]
+    table.view(R * T, D).index_reduce_(0, flat, upd[valid], "amax")
+    return table
+
+
+# --- K3: slot sort (+ fused add-wins filter) ------------------------------
+
+
+def dom_lookup(dc: torch.Tensor, rmv_vc: torch.Tensor) -> torch.Tensor:
+    """Per-slot tombstone bound ``max(rmv_vc[..., dc], 0)``, and 0 for dc
+    outside [0, D) (``_dom_lookup``, models/topk_rmv_dense.py:133)."""
+    D = rmv_vc.shape[-1]
+    inside = (dc >= 0) & (dc < D)
+    got = torch.gather(rmv_vc, -1, dc.clamp(0, D - 1).to(torch.int64))
+    return torch.where(inside, got.clamp_min(0), torch.zeros_like(got))
+
+
+def _sides_shape(sides: Sequence[Triple]) -> Tuple[Tuple[int, ...], List[int]]:
+    if not 1 <= len(sides) <= 2:
+        raise ValueError("sort_slots takes one or two (score, dc, ts) sides")
+    lead = tuple(sides[0][0].shape[:-1])
+    widths = []
+    for k, side in enumerate(sides):
+        w = side[0].shape[-1]
+        for name, t in zip(("score", "dc", "ts"), side):
+            _check(f"side {k} {name}", t, I32, lead + (w,))
+        widths.append(w)
+    return lead, widths
+
+
+def sort_slots(
+    sides: Sequence[Triple],
+    m_keep: int,
+    rmv_vc: Optional[torch.Tensor] = None,
+):
+    """Sort each row's candidates best-first by (score desc, ts desc, dc
+    asc), blank exact duplicates with ts > 0, keep the best `m_keep`.
+
+    `sides` is one or two (score, dc, ts) triples of i32[..., w] with
+    the same leading shape; the row's candidates are side a's w_a
+    followed by side b's w_b (W = w_a + w_b; the CUDA kernel takes
+    W <= 16, the plain version any W). With `rmv_vc` i32[..., D]
+    the add-wins filter ``ts > dom_lookup(dc, rmv_vc)`` runs first and
+    filtered candidates rank after every live one: for two sides that
+    each keep the slot invariant this is the union join
+    (``_join_slots_union``); without it, ``sort_slots_pallas``.
+
+    Returns (score, dc, ts) i32[..., m_keep] and n_live i32[...], the
+    number of slots with ts > 0 before truncation."""
+    lead, widths = _sides_shape(sides)
+    W = sum(widths)
+    if not 1 <= m_keep <= W:
+        raise ValueError(f"need 1 <= m_keep ({m_keep}) <= W ({W})")
+    flat = [t for side in sides for t in side]
+    if rmv_vc is not None:
+        _check("rmv_vc", rmv_vc, I32, lead + (rmv_vc.shape[-1],))
+    if not kernel_device(*flat, rmv_vc):
+        return sort_slots_plain(sides, m_keep, rmv_vc)
+    if W > MAX_SLOTS:
+        raise ValueError(f"the CUDA kernel takes W <= {MAX_SLOTS} candidates per row, not {W}")
+    dev = flat[0].device
+    o_s = torch.empty(lead + (m_keep,), dtype=I32, device=dev)
+    o_d = torch.empty_like(o_s)
+    o_t = torch.empty_like(o_s)
+    n_live = torch.empty(lead, dtype=I32, device=dev)
+    N = n_live.numel()
+    if N == 0:
+        return o_s, o_d, o_t, n_live
+    a = sides[0]
+    b = sides[1] if len(sides) == 2 else (None, None, None)
+    wb = widths[1] if len(sides) == 2 else 0
+    fn = _build.load("sort_slots", _K3_ARGS)
+    D = rmv_vc.shape[-1] if rmv_vc is not None else 0
+    rc = fn(
+        _ptr(a[0]), _ptr(a[1]), _ptr(a[2]), widths[0],
+        _ptr(b[0]), _ptr(b[1]), _ptr(b[2]), wb,
+        _ptr(rmv_vc), D,
+        _ptr(o_s), _ptr(o_d), _ptr(o_t), _ptr(n_live),
+        N, m_keep, ctypes.c_void_p(cuda_stream_handle(o_s)),
+    )
+    _build.check(rc, "sort_slots")
+    sort_slots.launches += 1
+    return o_s, o_d, o_t, n_live
+
+
+sort_slots.launches = 0
+_K3_ARGS = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int]  # side a, w_a
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # side b, w_b
+    + [ctypes.c_void_p, ctypes.c_int]  # rmv_vc, D
+    + [ctypes.c_void_p] * 4  # outputs
+    + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]  # N, m_keep, stream
+)
+
+
+def sort_slots_plain(
+    sides: Sequence[Triple],
+    m_keep: int,
+    rmv_vc: Optional[torch.Tensor] = None,
+):
+    """Plain version of K3: the same network over per-candidate columns.
+
+    Each comparator compares (live desc, score desc, ts desc, dc asc);
+    without a filter every candidate is live, so the order is the TPU
+    kernel's direct (score, ts, dc) compare (``_cmpx_desc``)."""
+    s = [c for side in sides for c in side[0].unbind(-1)]
+    d = [c for side in sides for c in side[1].unbind(-1)]
+    t = [c for side in sides for c in side[2].unbind(-1)]
+    W = len(s)
+    fused = rmv_vc is not None
+    neg = torch.full_like(s[0], NEG_INF)
+    zero = torch.zeros_like(s[0])
+    one = torch.ones_like(s[0])
+    live = [one] * W
+    if fused:
+        for i in range(W):
+            ok = t[i] > dom_lookup(d[i][..., None], rmv_vc)[..., 0]
+            s[i] = torch.where(ok, s[i], neg)
+            d[i] = torch.where(ok, d[i], zero)
+            t[i] = torch.where(ok, t[i], zero)
+            live[i] = ok.to(I32)
+
+    net = oddeven_network(W)
+
+    def network():
+        for i, j in net:
+            sw = (live[j] > live[i]) | (live[j] == live[i]) & (
+                (s[j] > s[i])
+                | (s[j] == s[i]) & ((t[j] > t[i]) | (t[j] == t[i]) & (d[j] < d[i]))
+            )
+            for col in (s, d, t, live):
+                col[i], col[j] = torch.where(sw, col[j], col[i]), torch.where(sw, col[i], col[j])
+
+    network()
+    dead_live = zero if fused else one
+    for i in range(W - 1, 0, -1):
+        dup = (s[i] == s[i - 1]) & (t[i] == t[i - 1]) & (d[i] == d[i - 1]) & (t[i] > 0)
+        s[i] = torch.where(dup, neg, s[i])
+        d[i] = torch.where(dup, zero, d[i])
+        t[i] = torch.where(dup, zero, t[i])
+        live[i] = torch.where(dup, dead_live, live[i])
+    network()
+    n_live = sum((x > 0).to(I32) for x in t)
+    return (
+        torch.stack(s[:m_keep], -1),
+        torch.stack(d[:m_keep], -1),
+        torch.stack(t[:m_keep], -1),
+        n_live.to(I32),
+    )

@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card, end to end.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases, each printing one line (any failure exits non-zero):
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. build: nvcc for every ``antidote_ccrdt_tpu_torch/csrc/*.cu`` at once,
+   with each kernel's registers and spills from ``-Xptxas -v``;
+3. kernels: K1-K3 against their plain PyTorch versions on the card at the
+   main path's shapes (``torch.equal``), timed with CUDA events beside
+   their byte bound and one library call computing the same function;
+4. main path: ``DenseReplay(make_dense("topk_rmv", ...), 32)`` for 8
+   rounds of 32 768 adds + 2 048 removals per replica, a sync every 4
+   rounds and an observe; every kernel's launch count must grow;
+5. profile: one more round and sync of the main path under
+   torch.profiler — device time by kernel and the device's idle share;
+6. identity: a reduced seeded replay on the CPU (plain versions) and on
+   the card (kernels) must end in bit-identical states;
+7. the kernels line, then the ok line.
+
+Imports nothing of JAX. Without a card, or outside the repository, it
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+INT32_OPS_PER_S = 67e12  # H100 SXM scalar 32-bit rate (the fp32 non-tensor peak)
+
+# The main path's shapes (bench.py main(): R=32, I=100 000, B=32 768,
+# Br=2 048, D=R, M=4, K=100).
+R, I, B, BR, M, K = 32, 100_000, 32_768, 2_048, 4, 100
+ROUNDS, SYNC_EVERY = 8, 4
+
+
+def log(phase: str, **kw) -> None:
+    print(f"[{phase}] " + json.dumps(kw, sort_keys=False), flush=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0):
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def max_abs_err(got, want) -> int:
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda)
+    print(smi, flush=True)
+    return smi
+
+
+def phase_build():
+    from antidote_ccrdt_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    secs = time.perf_counter() - t0
+    regs = {}
+    for name in _build.SOURCES:
+        out = _build.BUILD_LOG.get(name, "")
+        regs[name] = [
+            f"{fn}: {m.group(0)}"
+            for fn, m in zip(re.findall(r"Compiling entry function '(\w+)'", out),
+                             re.finditer(r"Used \d+ registers[^\n]*", out))
+        ] + re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads", out)
+    log("build", seconds=round(secs, 2), ptxas=regs)
+
+
+def phase_kernels(torch):
+    """K1-K3 against their plain versions at the main path's shapes."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place, delta_place_plain
+    from antidote_ccrdt_tpu_torch.ops.dense_table import NEG_INF
+    from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    D = R
+    rows_out = {}
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    # K1: tombstone scatter-max into [32, 100k, 32], Br=2048 per replica,
+    # with duplicate and out-of-range rows.
+    table = ri(0, 1 << 20, (R, I, D))
+    rows = ri(0, I, (R, BR))
+    rows[:, ::8] = rows[:, :1]
+    rows[:, 1::97] = -1
+    rows[:, 2::97] = I
+    upd = ri(0, 1 << 20, (R, BR, D))
+    got = kernels.scatter_max_rows_(table.clone(), rows, upd)
+    want = kernels.scatter_max_rows_plain_(table.clone(), rows, upd)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K1 scatter_max_rows disagrees with its plain version")
+    valid = (rows >= 0) & (rows < I)
+    flat = (torch.arange(R, device=dev)[:, None] * I + rows.long())[valid]
+    n_rows = int(torch.unique(flat).numel())
+    idx2 = flat[:, None].expand(-1, D).contiguous()
+    src2 = upd[valid].contiguous()
+    buf = table.clone()
+    b, by = bound_ms(2 * n_rows * D * 4 + R * BR * 4 + R * BR * D * 4)
+    rows_out["scatter_max_rows"] = dict(
+        max_abs_err=max_abs_err([got], [want]),
+        ms=cuda_time_ms(lambda: kernels.scatter_max_rows_(buf, rows, upd)),
+        plain_ms=cuda_time_ms(lambda: kernels.scatter_max_rows_plain_(buf, rows, upd)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_time_ms(lambda: buf.view(R * I, D).scatter_reduce_(0, idx2, src2, "amax")),
+    )
+    log("kernel K1", touched_rows=n_rows, copy_ms=cuda_time_ms(lambda: table.clone()),
+        copy_bound_ms=bound_ms(2 * R * I * D * 4)[0], **rows_out["scatter_max_rows"])
+    del table, buf, got, want, idx2, src2
+
+    # K2: a real sorted add stream of the main path's first batch.
+    eng = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=M)
+    gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7))
+    st = eng.add_stream(gen.next_batch(B, BR), 1)
+    args = (st.score, st.ts, st.dc, st.kid3, st.rank, st.keep)
+    got = delta_place(*args, I, M)
+    want = delta_place_plain(*args, I, M)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("K2 delta_place disagrees with its plain version")
+    addr = ((torch.arange(R, device=dev)[:, None] * I + st.kid3.long()) * M + st.rank.long())[st.keep]
+    vals = [st.score[st.keep], st.dc[st.keep], st.ts[st.keep]]
+
+    def library_k2():
+        for v, fill in zip(vals, (NEG_INF, 0, 0)):
+            torch.full((R * I * M,), fill, dtype=torch.int32, device=dev).index_put_((addr,), v)
+
+    b, by = bound_ms(3 * R * I * M * 4 + R * B * (5 * 4 + 1))
+    rows_out["delta_place"] = dict(
+        max_abs_err=max_abs_err(got, want),
+        ms=cuda_time_ms(lambda: delta_place(*args, I, M)),
+        plain_ms=cuda_time_ms(lambda: delta_place_plain(*args, I, M)),
+        bound_ms=b, bound_by=by, library_ms=cuda_time_ms(library_k2),
+    )
+    log("kernel K2", kept=int(st.keep.sum()), **rows_out["delta_place"])
+    del got, want
+
+    # K3: [32, 1, 100k] rows of 2 x 4 candidates against rmv_vc
+    # [32, 1, 100k, 32], fused and unfused. Each side is a canonical slot
+    # list (sorted, dup-free), as the state and the delta table are.
+    lead = (R, 1, I)
+
+    def side():
+        ts = torch.where(ri(0, 4, lead + (M,)) == 0, 0, ri(1, 1 << 20, lead + (M,)))
+        sc = torch.where(ts > 0, ri(1, 100_000, lead + (M,)), NEG_INF).to(torch.int32)
+        dc = torch.where(ts > 0, ri(0, D, lead + (M,)), 0).to(torch.int32)
+        return kernels.sort_slots_plain([(sc, dc, ts.to(torch.int32))], M)[:3]
+
+    sides = [side(), side()]
+    rmv_vc = ri(0, 1 << 20, lead + (D,))
+    n = R * I
+    packed = torch.cat([s[0].long() * 2**32 + s[2].long() for s in sides], dim=-1)
+    for fused in (True, False):
+        vc = rmv_vc if fused else None
+        got = kernels.sort_slots(sides, M, rmv_vc=vc)
+        want = kernels.sort_slots_plain(sides, M, vc)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"K3 sort_slots (fused={fused}) disagrees with its plain version")
+        n_bytes = 6 * n * M * 4 + 3 * n * M * 4 + n * 4 + (n * D * 4 if fused else 0)
+        b, by = bound_ms(n_bytes, n * (2 * 19 * 12 + 8 * 6))
+        entry = dict(
+            max_abs_err=max_abs_err(got, want),
+            ms=cuda_time_ms(lambda: kernels.sort_slots(sides, M, rmv_vc=vc)),
+            plain_ms=cuda_time_ms(lambda: kernels.sort_slots_plain(sides, M, vc), reps=3, warmup=1),
+            bound_ms=b, bound_by=by,
+            library_ms=cuda_time_ms(lambda: torch.sort(packed, dim=-1, descending=True)),
+        )
+        log(f"kernel K3 fused={fused}", live=int((got[2] > 0).sum()), **entry)
+        if fused:
+            rows_out["sort_slots"] = entry
+    return rows_out
+
+
+def phase_main_path(torch, card: str):
+    """The port's main path at full width, through the user's entry points."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+
+    dense = registry.make_dense("topk_rmv", n_ids=I, n_dcs=R, size=K, slots_per_id=M)
+    rp = DenseReplay(dense, R)
+    gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7))
+    batches = [gen.next_batch(B, BR) for _ in range(ROUNDS)]  # set-up, on the card
+    wrappers = (kernels.scatter_max_rows_, delta_place, kernels.sort_slots)
+    for w in wrappers:
+        w.launches = 0
+    sync()
+    apply_ms, sync_ms = [], []
+    t_all = time.perf_counter()
+    for rnd, ops in enumerate(batches):
+        t0 = time.perf_counter()
+        rp.apply(ops)
+        sync()
+        apply_ms.append((time.perf_counter() - t0) * 1e3)
+        if (rnd + 1) % SYNC_EVERY == 0:
+            t0 = time.perf_counter()
+            rp.sync()
+            sync()
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+    obs = rp.observe()
+    sync()
+    total_s = time.perf_counter() - t_all
+    launches = {
+        "scatter_max_rows": kernels.scatter_max_rows_.launches,
+        "delta_place": delta_place.launches,
+        "sort_slots": kernels.sort_slots.launches,
+    }
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if tuple(obs.ids.shape) != (R, 1, K) or not bool(obs.valid.any()):
+        raise AssertionError("empty or misshapen observable")
+    if not rp.converged():
+        raise AssertionError("replicas did not converge after the sync")
+    if bool(rp.state.lossy.any()):
+        print("[main] note: lossy capacity overflow flagged", flush=True)
+    apply_sorted = sorted(apply_ms)
+    merges = R * (B + BR) * ROUNDS
+    log("main", card=card, rounds=ROUNDS, syncs=len(sync_ms), launches=launches,
+        apply_ms=apply_ms, sync_ms=sync_ms,
+        p50_round_ms=apply_sorted[len(apply_sorted) // 2],
+        merges_per_s=merges / total_s,
+        apply_merges_per_s=merges / (sum(apply_ms) / 1e3),
+        valid_observed=int(obs.valid.sum()),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, rp, gen
+
+
+def phase_profile(torch, rp, ops):
+    """One more apply round and a sync of the main path under
+    torch.profiler: device time by kernel, and the device's idle share
+    (profiler on, so the host side runs slower than in phase 4)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rp.apply(ops)
+        rp.sync()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernels, copies and memsets are the events on the device; the aten
+    # ops that launched them carry the same time again, so they are left out.
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    log("profile", wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+        top=[{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in top])
+
+
+def phase_identity(torch):
+    """A reduced seeded replay on the CPU and on the card: same bits."""
+    from antidote_ccrdt_tpu_torch import convert, registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+
+    r, i, b, br = 4, 4096, 2048, 128
+
+    def run(device):
+        dense = registry.make_dense("topk_rmv", n_ids=i, n_dcs=r, size=K, slots_per_id=M, device=device)
+        rp = DenseReplay(dense, r)
+        gen = TopkRmvEffectGen(Workload(r, i, zipf_a=1.2, score_max=1000, seed=11), device=device)
+        for rnd in range(4):
+            rp.apply(gen.next_batch(b, br))
+            if rnd == 1:
+                rp.sync([0, 0, 2])
+        rp.sync()
+        return convert.to_numpy(rp.state), convert.to_numpy(rp.observe())
+
+    cpu, card = run("cpu"), run("cuda")
+    import numpy as np
+
+    for part_cpu, part_card in zip(cpu, card):
+        for name in part_cpu:
+            if not np.array_equal(part_cpu[name], part_card[name]):
+                raise AssertionError(f"CPU and card disagree on {name}")
+    log("identity", replicas=r, ids=i, adds=b, rmvs=br, rounds=4,
+        fields=sorted(cpu[0]) + [f"observe.{k}" for k in cpu[1]], bit_identical=True)
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import antidote_ccrdt_tpu_torch  # noqa: F401  (fails outside the repository)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = phase_device(torch)
+    phase_build()
+    rows = phase_kernels(torch)
+    launches, rp, gen = phase_main_path(torch, card)
+    phase_profile(torch, rp, gen.next_batch(B, BR))
+    del rp
+    phase_identity(torch)
+    sources = {
+        "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
+                             "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
+        "delta_place": ("antidote_ccrdt_tpu_torch/csrc/delta_place.cu",
+                        "antidote_ccrdt_tpu/ops/delta_place.py:136"),
+        "sort_slots": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                       "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+    }
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rows[name])
+        for name, (src, rep) in sources.items()
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

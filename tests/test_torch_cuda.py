@@ -1,0 +1,190 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version (which tests/test_torch_kernels.py holds against the JAX
+package), and the engine and replay on the card against the same run on
+the CPU, bit for bit.
+
+Every test here is marked `cuda` and skips without a card. This module
+imports neither jax nor the JAX package, so it runs where only the port
+is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from antidote_ccrdt_tpu_torch import convert, registry
+from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
+from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+from antidote_ccrdt_tpu_torch.ops import kernels
+from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place, delta_place_plain
+from antidote_ccrdt_tpu_torch.ops.dense_table import NEG_INF, scatter_max_rows
+
+I32_MIN = np.iinfo(np.int32).min
+I32_MAX = np.iinfo(np.int32).max
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def k1_inputs(seed, R=3, T=24, D=5, B=20, vmax=2**31 - 1):
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, vmax, (R, T, D), dtype=np.int64).astype(np.int32)
+    rows = rng.integers(-3, T + 2, (R, B)).astype(np.int32)  # some dropped
+    rows[:, ::4] = rows[:, :1]  # duplicate runs
+    upd = rng.integers(0, vmax, (R, B, D), dtype=np.int64).astype(np.int32)
+    upd[0, 0, 0] = I32_MAX
+    return table, rows, upd
+
+
+def k2_inputs(seed):
+    """A sorted add stream with duplicate kid runs, keep gaps, dead
+    sentinels and full-range signed scores/ts (as the Pallas test)."""
+    rng = np.random.default_rng(200 + seed)
+    R, T, M, D, B = 2, 37, 3, 9, 90
+    kid = np.sort(rng.integers(0, T + 1, (R, B)).astype(np.int32), axis=1)
+    rank = np.full((R, B), M, np.int32)
+    keep = np.zeros((R, B), bool)
+    for r in range(R):
+        prev, cnt = -1, 0
+        for j in range(B):
+            k = kid[r, j]
+            cnt = cnt + 1 if k == prev else 0
+            prev = k
+            if k < T and cnt < M and rng.random() > 0.25:
+                rank[r, j], keep[r, j] = cnt, True
+    score = rng.integers(I32_MIN + 2, I32_MAX, (R, B)).astype(np.int32)
+    ts = rng.integers(I32_MIN + 2, I32_MAX, (R, B)).astype(np.int32)
+    dc = rng.integers(0, D, (R, B)).astype(np.int32)
+    return score, ts, dc, kid, rank, keep, T, M, D
+
+
+SCORES = np.array([I32_MIN, NEG_INF, -3, 0, 1, 2, 5, I32_MAX], np.int32)
+
+
+def raw_slots(rng, shape, D):
+    """Candidates with many empties and exact duplicates, INT32_MIN and
+    NEG_INF scores, and dcs outside [0, D)."""
+    ts = rng.integers(0, 4, shape).astype(np.int32)
+    score = np.where(ts == 0, NEG_INF, SCORES[rng.integers(0, len(SCORES), shape)]).astype(np.int32)
+    dc = np.where(ts == 0, 0, rng.integers(-1, D + 1, shape)).astype(np.int32)
+    return score, dc, ts
+
+
+def canonical_side(rng, shape, D):
+    """A slot list that keeps the engine's invariant: live slots (ts > 0)
+    first, best-first by the direct (score desc, ts desc, dc asc) order,
+    no exact duplicates; then holes (NEG_INF, 0, 0)."""
+    s, d, tt = raw_slots(rng, shape, D)
+    M = shape[-1]
+    out = [np.full(shape, NEG_INF, np.int32), np.zeros(shape, np.int32), np.zeros(shape, np.int32)]
+    for idx in np.ndindex(*shape[:-1]):
+        live = sorted(
+            {(int(s[idx][m]), int(tt[idx][m]), int(d[idx][m])) for m in range(M) if tt[idx][m] > 0},
+            key=lambda x: (-x[0], -x[1], x[2]),
+        )
+        for m, (sc, ts_, dc_) in enumerate(live):
+            out[0][idx][m], out[2][idx][m], out[1][idx][m] = sc, ts_, dc_
+    return tuple(out)
+
+
+# --- kernels against their plain versions ----------------------------------
+
+
+@pytest.mark.cuda
+def test_k1_kernel_matches_plain_on_card(cuda):
+    table, rows, upd = k1_inputs(0, R=4, T=1000, D=32, B=512)
+    n0 = kernels.scatter_max_rows_.launches
+    got = scatter_max_rows(t(table).to(cuda), t(rows).to(cuda), t(upd).to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.scatter_max_rows_.launches == n0 + 1
+    assert torch.equal(got.cpu(), scatter_max_rows(t(table), t(rows), t(upd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_k2_kernel_matches_plain_on_card(cuda, seed):
+    score, ts, dc, kid, rank, keep, T, M, _ = k2_inputs(seed)
+    args = [t(x) for x in (score, ts, dc, kid, rank, keep)]
+    n0 = delta_place.launches
+    got = delta_place(*(x.to(cuda) for x in args), T, M)
+    torch.cuda.synchronize()
+    assert delta_place.launches == n0 + 1
+    for g, w in zip(got, delta_place_plain(*args, T, M)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,m,fused", [(8, 4, True), (8, 4, False), (6, 3, False), (16, 8, True)])
+def test_k3_kernel_matches_plain_on_card(cuda, w, m, fused):
+    rng = np.random.default_rng(w + m)
+    D = 3
+    k = w // 2
+    a = canonical_side(rng, (3, 2, 129, k), D)
+    b = canonical_side(rng, (3, 2, 129, w - k), D)
+    rmv_vc = t(rng.integers(0, 4, (3, 2, 129, D)).astype(np.int32)) if fused else None
+    sides = [tuple(map(t, a)), tuple(map(t, b))]
+    n0 = kernels.sort_slots.launches
+    got = kernels.sort_slots(
+        [tuple(x.to(cuda) for x in s) for s in sides], m,
+        rmv_vc=None if rmv_vc is None else rmv_vc.to(cuda),
+    )
+    torch.cuda.synchronize()
+    assert kernels.sort_slots.launches == n0 + 1
+    for g, x in zip(got, kernels.sort_slots_plain(sides, m, rmv_vc)):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [False, "table", True])
+def test_engine_on_card_matches_cpu(cuda, mode):
+    out = {}
+    for dev in ("cpu", cuda):
+        dense = registry.make_dense("topk_rmv", n_ids=300, n_dcs=4, size=20, slots_per_id=4, device=dev)
+        gen = TopkRmvEffectGen(Workload(4, 300, zipf_a=1.2, score_max=50, seed=2), device=dev)
+        st = dense.init(4, 1)
+        for _ in range(3):
+            st, ex = dense.apply_ops(st, gen.next_batch(200, 20), collect_dominated=mode,
+                                     collect_promotions=mode is True)
+        merged = dense.merge(st, dense.init(4, 1))
+        out[str(dev)] = (convert.to_numpy(st), convert.to_numpy(ex), convert.to_numpy(merged),
+                         convert.to_numpy(dense.observe(st)))
+    assert_trees_equal(out["cpu"], out[str(cuda)])
+
+
+@pytest.mark.cuda
+def test_replay_on_card_matches_cpu(cuda):
+    out = {}
+    for dev in ("cpu", cuda):
+        dense = registry.make_dense("topk_rmv", n_ids=500, n_dcs=4, size=20, slots_per_id=4, device=dev)
+        rp = DenseReplay(dense, 4)
+        gen = TopkRmvEffectGen(Workload(4, 500, score_max=100, seed=4), device=dev)
+        for rnd in range(4):
+            rp.apply(gen.next_batch(300, 30))
+            rp.sync([1, 1, 3] if rnd == 1 else None)
+        out[str(dev)] = (convert.to_numpy(rp.state), convert.to_numpy(rp.observe()))
+        assert rp.converged()
+    assert_trees_equal(out["cpu"], out[str(cuda)])
+
+
+def assert_trees_equal(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert_trees_equal(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        for x, y in zip(a, b):
+            assert_trees_equal(x, y)
+    elif a is None:
+        assert b is None
+    else:
+        assert np.array_equal(a, b)

@@ -1,0 +1,191 @@
+"""The port's kernels K1-K3: each plain version against the JAX package's
+Pallas function (interpret mode, as tests/test_pallas_kernels.py runs
+them) and its XLA path, with exact equality (every leaf is int32).
+
+The kernels themselves are held against these plain versions on the card
+by tests/test_torch_cuda.py, which shares the input makers below.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from antidote_ccrdt_tpu.models.topk_rmv_dense import _join_slots_union, _sort_slots
+from antidote_ccrdt_tpu.ops import pallas_kernels as jpk
+from antidote_ccrdt_tpu.ops.delta_place import delta_place_pallas
+from antidote_ccrdt_tpu.ops.dense_table import scatter_max_rows_mxu
+from antidote_ccrdt_tpu_torch.ops import kernels
+from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+from antidote_ccrdt_tpu_torch.ops.dense_table import NEG_INF, scatter_max_rows
+from test_torch_cuda import I32_MAX, I32_MIN, canonical_side, k1_inputs, k2_inputs, raw_slots, t
+
+
+
+
+def eq(got, want):
+    return np.array_equal(np.asarray(got), np.asarray(want))
+
+
+# --- K1 -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,vmax", [(0, 2**31 - 1), (1, 50), (2, 2**20)])
+def test_k1_plain_matches_pallas_and_xla(seed, vmax):
+    table, rows, upd = k1_inputs(seed, vmax=vmax)
+    want_pallas = jpk.scatter_max_rows_onehot_pallas(
+        jnp.asarray(table), jnp.asarray(rows), jnp.asarray(upd), True
+    )
+    want_xla = jax.vmap(scatter_max_rows_mxu)(
+        jnp.asarray(table), jnp.asarray(rows), jnp.asarray(upd)
+    )
+    got = scatter_max_rows(t(table), t(rows), t(upd))
+    assert eq(got, want_pallas)
+    assert eq(got, want_xla)
+
+
+def test_k1_functional_copy_leaves_input_alone():
+    table, rows, upd = k1_inputs(3)
+    tt = t(table)
+    before = tt.clone()
+    scatter_max_rows(tt.expand(2, *tt.shape)[0], t(rows), t(upd))
+    assert torch.equal(tt, before)
+
+
+def test_k1_wrapper_rejects_bad_inputs():
+    table, rows, upd = k1_inputs(4)
+    with pytest.raises(TypeError):
+        kernels.scatter_max_rows_(t(table).long(), t(rows), t(upd))
+    with pytest.raises(ValueError):
+        kernels.scatter_max_rows_(t(table), t(rows)[:, :-1], t(upd))
+    with pytest.raises(ValueError):
+        kernels.scatter_max_rows_(t(table).transpose(1, 2).contiguous().transpose(1, 2), t(rows), t(upd))
+    with pytest.raises(ValueError):
+        kernels.scatter_max_rows_(
+            torch.empty(table.shape, dtype=torch.int32, device="meta"), t(rows), t(upd)
+        )
+
+
+# --- K2 -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k2_plain_matches_pallas_and_xla(seed):
+    score, ts, dc, kid, rank, keep, T, M, D = k2_inputs(seed)
+    want = delta_place_pallas(
+        *(jnp.asarray(x) for x in (score, ts, dc, kid, rank, keep)), T, M, D, True
+    )
+    # The engine's XLA path: three `.at[kid3, rank3].set(mode="drop")`.
+    R, B = kid.shape
+    kid3 = np.where(keep, kid, T)
+    rank3 = np.where(keep, rank, M + np.arange(B, dtype=np.int32))
+    xla = []
+    for vals, fill in ((score, NEG_INF), (dc, 0), (ts, 0)):
+        rows = [
+            jnp.full((T, M), fill, jnp.int32)
+            .at[kid3[r], rank3[r]].set(vals[r], mode="drop", unique_indices=True)
+            for r in range(R)
+        ]
+        xla.append(jnp.stack(rows))
+    got = delta_place(*(t(x) for x in (score, ts, dc, kid, rank, keep)), T, M)
+    for g, w, x in zip(got, want, xla):
+        assert eq(g, w)
+        assert eq(g, x)
+
+
+# --- K3 -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("w,m", [(6, 3), (4, 2)])
+def test_k3_unfused_matches_pallas(seed, w, m):
+    # (The interpreted Pallas network compiles in seconds at W <= 6 and in
+    # half a minute at W = 8; W = 8 is held against `_sort_slots` below
+    # and, fused, against `_join_slots_union`.)
+    rng = np.random.default_rng(seed)
+    score, dc, ts = raw_slots(rng, (2, 3, 17, w), 3)
+    want = jpk.sort_slots_pallas(jnp.asarray(score), jnp.asarray(dc), jnp.asarray(ts), m, True, 128)
+    got = kernels.sort_slots([(t(score), t(dc), t(ts))], m)
+    for g, x in zip(got, want):
+        assert eq(g, x)
+    # Two sides are the same candidates split in place.
+    k = w // 2
+    got2 = kernels.sort_slots(
+        [(t(score[..., :k]), t(dc[..., :k]), t(ts[..., :k])),
+         (t(score[..., k:]), t(dc[..., k:]), t(ts[..., k:]))], m,
+    )
+    for g, x in zip(got2, want):
+        assert eq(g, x)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_k3_unfused_matches_xla_sort_without_int32_min(seed):
+    # `_sort_slots` negates its keys, so it agrees with the direct
+    # compare everywhere but at INT32_MIN scores.
+    rng = np.random.default_rng(10 + seed)
+    score, dc, ts = raw_slots(rng, (2, 1, 17, 8), 3)
+    score = np.where(score == I32_MIN, 7, score).astype(np.int32)
+    want = _sort_slots(jnp.asarray(score), jnp.asarray(dc), jnp.asarray(ts), 4)
+    got = kernels.sort_slots([(t(score), t(dc), t(ts))], 4)
+    for g, x in zip(got, want):
+        assert eq(g, x)
+    got2 = kernels.sort_slots([(t(score[..., :4]), t(dc[..., :4]), t(ts[..., :4])),
+                               (t(score[..., 4:]), t(dc[..., 4:]), t(ts[..., 4:]))], 4)
+    for g, x in zip(got2, want):
+        assert eq(g, x)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k3_fused_matches_union_join(seed):
+    rng = np.random.default_rng(20 + seed)
+    D, M = 3, 4
+    shape = (2, 2, 33, M)
+    a = canonical_side(rng, shape, D)
+    b = canonical_side(rng, shape, D)
+    # Cross-side duplicates: copy some of a's rows into b.
+    same = rng.random(shape[:-1])[..., None] < 0.3
+    b = tuple(np.where(same, x, y) for x, y in zip(a, b))
+    rmv_vc = rng.integers(0, 4, shape[:-1] + (D,)).astype(np.int32)
+    want = _join_slots_union(
+        tuple(jnp.asarray(x) for x in a), tuple(jnp.asarray(x) for x in b), jnp.asarray(rmv_vc), M
+    )
+    got = kernels.sort_slots([tuple(map(t, a)), tuple(map(t, b))], M, rmv_vc=t(rmv_vc))
+    for g, x in zip(got, want):
+        assert eq(g, x)
+
+
+def test_k3_fused_dead_ranks_after_int32_min():
+    # A live INT32_MIN slot must stay ahead of a filtered-out candidate,
+    # which a plain direct compare of (NEG_INF, 0, 0) would put first.
+    M, D = 2, 2
+    a = (np.array([[[I32_MIN, NEG_INF]]], np.int32), np.array([[[1, 0]]], np.int32),
+         np.array([[[5, 0]]], np.int32))
+    b = (np.array([[[9, NEG_INF]]], np.int32), np.array([[[0, 0]]], np.int32),
+         np.array([[[2, 0]]], np.int32))
+    rmv_vc = np.array([[[3, 0]]], np.int32)  # kills b's slot (ts 2 <= 3 at dc 0)
+    want = _join_slots_union(
+        tuple(jnp.asarray(x) for x in a), tuple(jnp.asarray(x) for x in b), jnp.asarray(rmv_vc), M
+    )
+    got = kernels.sort_slots([tuple(map(t, a)), tuple(map(t, b))], M, rmv_vc=t(rmv_vc))
+    for g, x in zip(got, want):
+        assert eq(g, x)
+    assert got[0].tolist() == [[[I32_MIN, NEG_INF]]] and got[3].tolist() == [[1]]
+
+
+def test_oddeven_network_matches_jax():
+    for n in (2, 3, 4, 6, 8, 16):
+        assert kernels.oddeven_network(n) == jpk.oddeven_network(n)
+
+
+def test_cpu_wrappers_do_not_count_launches():
+    before = (kernels.scatter_max_rows_.launches, delta_place.launches, kernels.sort_slots.launches)
+    table, rows, upd = k1_inputs(5)
+    scatter_max_rows(t(table), t(rows), t(upd))
+    score, ts, dc, kid, rank, keep, T, M, _ = k2_inputs(0)
+    delta_place(*(t(x) for x in (score, ts, dc, kid, rank, keep)), T, M)
+    s, d, tt = raw_slots(np.random.default_rng(0), (4, 8), 3)
+    kernels.sort_slots([(t(s), t(d), t(tt))], 4)
+    after = (kernels.scatter_max_rows_.launches, delta_place.launches, kernels.sort_slots.launches)
+    assert before == after
