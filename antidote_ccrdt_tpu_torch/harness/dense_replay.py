@@ -57,7 +57,8 @@ def fold_rows(dense: Any, state: Any, contributors: Sequence[int]) -> Any:
 
 def _broadcast_rows(folded: Any, n: int) -> Any:
     """Row 0 seen as n rows: a view (stride 0 on the replica axis), never
-    written through — the engine's functions copy before any kernel."""
+    written through — the engine's kernels read it through its stride
+    (K1c) or the engine copies it first (K3's inputs)."""
     return map_state(lambda x: x[:1].expand((n,) + tuple(x.shape[1:])), folded)
 
 

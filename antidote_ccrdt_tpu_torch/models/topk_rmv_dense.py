@@ -14,15 +14,15 @@ Every function returns the JAX engine's result bit for bit. ``apply_ops``
 turns a batch into a delta table (4-key sort, dedup, rank, placement) and
 joins it with the state; ``merge`` is the same join between two states.
 The three steps the JAX package also wrote as Pallas kernels run as CUDA
-kernels on a card: the tombstone scatter-max (K1,
-``ops.kernels.scatter_max_rows_``), the delta placement (K2,
+kernels on a card: the tombstone scatter-max (K1c, out of place,
+``ops.kernels.scatter_max_rows_copy``), the delta placement (K2,
 ``ops.delta_place.delta_place``) and the slot join (K3,
 ``ops.kernels.sort_slots`` with the add-wins filter fused). The rest is
 plain PyTorch on either device.
 
 States are immutable: no method writes into a tensor it was given (the
 old state is read again by ``collect_promotions``, and ``DenseReplay``'s
-broadcast rows are views of one row).
+broadcast rows are views of one row, which K1c reads in place).
 """
 
 from __future__ import annotations
@@ -101,7 +101,8 @@ class AddStream(NamedTuple):
     score: torch.Tensor  # i32
     ts: torch.Tensor  # i32
     dc: torch.Tensor  # i32
-    kid3: torch.Tensor  # i32: key*I + id of live entries, NK*I otherwise
+    kid: torch.Tensor  # i32: the sort key key*I + id, NK*I for invalid adds (nondecreasing)
+    kid3: torch.Tensor  # i32: kid of live entries, NK*I otherwise
     rank: torch.Tensor  # i32: rank within the kid group
     keep: torch.Tensor  # bool: live and rank < M (placed)
     overflow: torch.Tensor  # bool: live and rank >= M (dropped; lossy)
@@ -274,7 +275,7 @@ class TopkRmvDense:
 
     def _updated_tombstones_batched(self, state: TopkRmvDenseState, ops: TopkRmvOps) -> torch.Tensor:
         """Post-batch tombstone table [R, NK, I, D]: stored vcs merged with
-        this batch's removals (K1). Invalid removals map to the sentinel
+        this batch's removals (K1c). Invalid removals map to the sentinel
         row NK*I, which the scatter drops."""
         R, NK = state.rmv_vc.shape[:2]
         I, D = self.I, self.D
@@ -330,6 +331,7 @@ class TopkRmvDense:
         rank = (c - li - base).to(I32)
         return AddStream(
             score=s_score, ts=s_ts, dc=s_dc,
+            kid=s_kid,
             kid3=torch.where(live, s_kid, NK * I).to(I32),
             rank=rank,
             keep=live & (rank < M),
@@ -354,7 +356,9 @@ class TopkRmvDense:
         vc = torch.maximum(state.vc, vc_hit[:, : NK * D].reshape(R, NK, D))
 
         # 3. Delta table: the sorted, deduped, ranked add stream, placed
-        #    (K2) at (kid, rank) for its best M entries per kid.
+        #    (K2) at (kid, rank) for its best M entries per kid. K2 takes the
+        #    nondecreasing sort key `kid`; kid3 breaks the order at every
+        #    dropped duplicate, and both agree on every kept entry.
         stream = self.add_stream(ops, NK, add_valid)
         s_key = torch.div(stream.kid3, I, rounding_mode="floor")
         key_hit = s_key[..., None] == torch.arange(NK, dtype=I32, device=dev)
@@ -362,7 +366,7 @@ class TopkRmvDense:
         d_score, d_dc, d_ts = (
             x.view(R, NK, I, M)
             for x in delta_place(
-                stream.score, stream.ts, stream.dc, stream.kid3, stream.rank, stream.keep, NK * I, M
+                stream.score, stream.ts, stream.dc, stream.kid, stream.rank, stream.keep, NK * I, M
             )
         )
 

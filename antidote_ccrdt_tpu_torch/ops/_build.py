@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers, so
 one nvcc call takes seconds) that take raw device pointers, sizes and a
-stream handle and return ``cudaGetLastError()``. ``load(name, argtypes)``
+stream handle and return ``cudaGetLastError()``; ``csrc/*.cuh`` holds
+device helpers the sources share. ``load(name, argtypes, symbol)``
 compiles the source into ``build/lib<name>.so`` for ``sm_90a`` when the
-library is missing or older than its source, and returns its C function
-``name`` with its argument types declared. ``build_all()`` starts one
-nvcc per source at once.
+library is missing or older than its source or a header, and returns its
+C function ``symbol`` (default ``name``) with its argument types
+declared. ``build_all()`` starts one nvcc per source at once.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module on a machine without nvcc.
@@ -56,7 +57,8 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in (src, *CSRC_DIR.glob("*.cuh")))
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:
@@ -96,18 +98,20 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def load(name: str, argtypes: List[type]) -> ctypes._CFuncPtr:
-    """The C function `name` of ``csrc/<name>.cu`` (built first if
-    needed), taking `argtypes` and returning a CUDA error code."""
+def load(name: str, argtypes: List[type], symbol: Optional[str] = None) -> ctypes._CFuncPtr:
+    """The C function `symbol` (default `name`) of ``csrc/<name>.cu``
+    (built first if needed), taking `argtypes` and returning a CUDA error
+    code."""
+    symbol = symbol or name
     with _lock:
-        fn: Optional[ctypes._CFuncPtr] = _fns.get(name)
+        fn: Optional[ctypes._CFuncPtr] = _fns.get(symbol)
         if fn is None:
             if _stale(name):
                 _finish(name, _start(name))
-            fn = getattr(ctypes.CDLL(str(_paths(name)[1])), name)
+            fn = getattr(ctypes.CDLL(str(_paths(name)[1])), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fns[name] = fn
+            _fns[symbol] = fn
         return fn
 
 

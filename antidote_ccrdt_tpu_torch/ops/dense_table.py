@@ -27,12 +27,13 @@ def scatter_max_rows(table: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor)
     max(table, 0); reachable tombstone tables are >= 0, where the two
     agree), rows i32[R, B] (rows outside [0, T) are dropped, duplicates
     allowed), upd i32[R, B, D] >= 0. The input table is not modified: the
-    caller's state is immutable and may be a broadcast view, so the
-    kernel (K1) runs on a fresh contiguous copy."""
-    from .kernels import scatter_max_rows_
+    caller's state is immutable and may be a broadcast view. On a card
+    this is one launch of K1c (``ops.kernels.scatter_max_rows_copy``),
+    which reads a broadcast view in place and writes a new table; on the
+    CPU a contiguous copy and K1's plain version."""
+    from .kernels import scatter_max_rows_copy
 
-    out = table.clone(memory_format=torch.contiguous_format)
-    return scatter_max_rows_(out, rows.contiguous(), upd.contiguous())
+    return scatter_max_rows_copy(table, rows, upd)
 
 
 def neg_i32(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Wrappers of the hand-written CUDA kernels K1 (``scatter_max_rows_``) and
-K3 (``sort_slots``), with their plain PyTorch versions.
+"""Wrappers of the hand-written CUDA kernels K1 (``scatter_max_rows_``, in
+place), K1c (``scatter_max_rows_copy``, out of place: the main path's
+tombstone update) and K3 (``sort_slots``), with their plain PyTorch
+versions.
 
 A wrapper checks device, dtype, shape and contiguity and raises on what it
 does not take. For CUDA tensors it launches its kernel (built from
@@ -130,6 +132,59 @@ def scatter_max_rows_plain_(table: torch.Tensor, rows: torch.Tensor, upd: torch.
     flat = (base + rows.to(torch.int64))[valid]
     table.view(R * T, D).index_reduce_(0, flat, upd[valid], "amax")
     return table
+
+
+# --- K1c: tombstone row scatter-max, out of place --------------------------
+
+K1C_MAX_D = 8192  # a block of the kernel copies at least one [D] row
+
+
+def scatter_max_rows_copy(table: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """Out of place: a new table ``out`` with ``out[r] = table[r]`` and
+    ``out[r, rows[r, j]] = max(out[r, rows[r, j]], upd[r, j])`` for rows in
+    [0, T); other rows are dropped, duplicates allowed. `table` is not
+    written.
+
+    table i32[R, T, D] with any replica stride (0 for a broadcast view)
+    whose inner [T, D] block is contiguous; a table laid out otherwise is
+    copied first. rows i32[R, B], upd i32[R, B, D]. Returns a contiguous
+    i32[R, T, D]."""
+    R, T, D = table.shape
+    B = rows.shape[-1]
+    if table.dtype != I32:
+        raise TypeError(f"table: dtype {table.dtype}, expected {I32}")
+    rows, upd = rows.contiguous(), upd.contiguous()
+    _check("rows", rows, I32, (R, B))
+    _check("upd", upd, I32, (R, B, D))
+    if not kernel_device(table, rows, upd):
+        return scatter_max_rows_copy_plain(table, rows, upd)
+    if D > K1C_MAX_D:
+        raise ValueError(f"the CUDA kernel takes D <= {K1C_MAX_D}, not {D}")
+    out = torch.empty((R, T, D), dtype=I32, device=table.device)
+    if out.numel() == 0:
+        return out
+    if not table[0].is_contiguous():
+        table = table.contiguous()
+    fn = _build.load("scatter_max_rows", _K1C_ARGS, "scatter_max_rows_copy")
+    rc = fn(_ptr(table), table.stride(0), _ptr(rows), _ptr(upd), _ptr(out), R, T, D, B,
+            ctypes.c_void_p(cuda_stream_handle(out)))
+    _build.check(rc, "scatter_max_rows_copy")
+    scatter_max_rows_copy.launches += 1
+    return out
+
+
+scatter_max_rows_copy.launches = 0
+_K1C_ARGS = (
+    [ctypes.c_void_p, ctypes.c_int64]  # table, replica stride
+    + [ctypes.c_void_p] * 3  # rows, upd, out
+    + [ctypes.c_int64] * 4 + [ctypes.c_void_p]  # R, T, D, B, stream
+)
+
+
+def scatter_max_rows_copy_plain(table: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1c: a contiguous copy of the table, then K1's
+    plain version on it."""
+    return scatter_max_rows_plain_(table.clone(memory_format=torch.contiguous_format), rows, upd)
 
 
 # --- K3: slot sort (+ fused add-wins filter) ------------------------------

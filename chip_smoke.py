@@ -8,14 +8,20 @@ Phases, each printing one line (any failure exits non-zero):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: nvcc for every ``antidote_ccrdt_tpu_torch/csrc/*.cu`` at once,
    with each kernel's registers and spills from ``-Xptxas -v``;
-3. kernels: K1-K3 against their plain PyTorch versions on the card at the
-   main path's shapes (``torch.equal``), timed with CUDA events beside
-   their byte bound and one library call computing the same function;
+3. kernels: K1 (in place), K1c (out of place, on a contiguous table and
+   on a stride-0 broadcast view), K2 and K3 against their plain PyTorch
+   versions on the card at the main path's shapes (``torch.equal``),
+   timed with CUDA events beside their byte bound and one library call
+   computing the same function;
 4. main path: ``DenseReplay(make_dense("topk_rmv", ...), 32)`` for 8
    rounds of 32 768 adds + 2 048 removals per replica, a sync every 4
-   rounds and an observe; every kernel's launch count must grow;
+   rounds and an observe; every apply round must launch each of the main
+   path's kernels (K1c, K2, K3);
 5. profile: one more round and sync of the main path under
    torch.profiler — device time by kernel and the device's idle share;
+   then each kernel of phase 3 alone under torch.profiler, its device
+   time without the launch (no profiler session runs before phase 4,
+   whose host launches it could slow);
 6. identity: a reduced seeded replay on the CPU (plain versions) and on
    the card (kernels) must end in bit-identical states;
 7. the kernels line, then the ok line.
@@ -57,6 +63,25 @@ def max_abs_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time per call of the CUDA kernel named `kernel` inside
+    `fn`, from torch.profiler (launch and host time excluded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and re.search(rf"\b{kernel}\b", e.key))
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time of {kernel}")
+    return us / 1e3 / reps
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -86,7 +111,8 @@ def phase_build():
 
 
 def phase_kernels(torch):
-    """K1-K3 against their plain versions at the main path's shapes."""
+    """K1, K1c, K2 and K3 against their plain versions at the main path's
+    shapes."""
     from antidote_ccrdt_tpu_torch import registry
     from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
     from antidote_ccrdt_tpu_torch.ops import kernels
@@ -98,6 +124,7 @@ def phase_kernels(torch):
     g = torch.Generator(device=dev).manual_seed(1)
     D = R
     rows_out = {}
+    device_jobs = []  # (label, call, kernel name), profiled after phase 5
 
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
@@ -131,19 +158,50 @@ def phase_kernels(torch):
     )
     log("kernel K1", touched_rows=n_rows, copy_ms=cuda_time_ms(lambda: table.clone()),
         copy_bound_ms=bound_ms(2 * R * I * D * 4)[0], **rows_out["scatter_max_rows"])
-    del table, buf, got, want, idx2, src2
+    device_jobs.append(("K1", lambda: kernels.scatter_max_rows_(table, rows, upd), "scatter_max_rows_kernel"))
+    del buf, got, want
+
+    # K1c: the same scatter-max out of place, on a contiguous table and on
+    # DenseReplay's broadcast view after a sync (one row, replica stride 0).
+    small = R * BR * 4 + R * BR * D * 4
+    for form, tab in (("contiguous", table), ("view", table[:1].expand(R, I, D))):
+        before = tab.clone()
+        got = kernels.scatter_max_rows_copy(tab, rows, upd)
+        want = kernels.scatter_max_rows_copy_plain(tab, rows, upd)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1c scatter_max_rows_copy ({form}) disagrees with its plain version")
+        if not torch.equal(tab, before):
+            raise AssertionError(f"K1c scatter_max_rows_copy ({form}) wrote its input")
+        read = (1 if form == "view" else R) * I * D * 4
+        b, by = bound_ms(read + R * I * D * 4 + small)
+        entry = dict(
+            max_abs_err=max_abs_err([got], [want]),
+            ms=cuda_time_ms(lambda: kernels.scatter_max_rows_copy(tab, rows, upd)),
+            plain_ms=cuda_time_ms(lambda: kernels.scatter_max_rows_copy_plain(tab, rows, upd)),
+            bound_ms=b, bound_by=by,
+            # One out-of-place call (after a reshape, which copies a view).
+            library_ms=cuda_time_ms(lambda: tab.reshape(R * I, D).scatter_reduce(0, idx2, src2, "amax")),
+        )
+        log(f"kernel K1c {form}", **entry)
+        device_jobs.append((f"K1c {form}", lambda tab=tab: kernels.scatter_max_rows_copy(tab, rows, upd),
+                            "scatter_max_rows_copy_kernel"))
+        if form == "contiguous":
+            rows_out["scatter_max_rows_copy"] = entry
+        del got, want, before
+    del idx2, src2
 
     # K2: a real sorted add stream of the main path's first batch.
     eng = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=M)
     gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7))
     st = eng.add_stream(gen.next_batch(B, BR), 1)
-    args = (st.score, st.ts, st.dc, st.kid3, st.rank, st.keep)
+    args = (st.score, st.ts, st.dc, st.kid, st.rank, st.keep)  # the sorted kid, as the engine passes it
     got = delta_place(*args, I, M)
     want = delta_place_plain(*args, I, M)
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(got, want)):
         raise AssertionError("K2 delta_place disagrees with its plain version")
-    addr = ((torch.arange(R, device=dev)[:, None] * I + st.kid3.long()) * M + st.rank.long())[st.keep]
+    addr = ((torch.arange(R, device=dev)[:, None] * I + st.kid.long()) * M + st.rank.long())[st.keep]
     vals = [st.score[st.keep], st.dc[st.keep], st.ts[st.keep]]
 
     def library_k2():
@@ -157,7 +215,13 @@ def phase_kernels(torch):
         plain_ms=cuda_time_ms(lambda: delta_place_plain(*args, I, M)),
         bound_ms=b, bound_by=by, library_ms=cuda_time_ms(library_k2),
     )
-    log("kernel K2", kept=int(st.keep.sum()), **rows_out["delta_place"])
+    tables = [torch.empty((R, I, M), dtype=torch.int32, device=dev) for _ in range(3)]
+    device_jobs.append(("K2", lambda: delta_place(*args, I, M), "delta_place_kernel"))
+    log("kernel K2", kept=int(st.keep.sum()),
+        # The writes alone: three torch fills of the same tables.
+        fill_ms=cuda_time_ms(lambda: [x.fill_(0) for x in tables]),
+        **rows_out["delta_place"])
+    del tables
     del got, want
 
     # K3: [32, 1, 100k] rows of 2 x 4 candidates against rmv_vc
@@ -192,9 +256,11 @@ def phase_kernels(torch):
             library_ms=cuda_time_ms(lambda: torch.sort(packed, dim=-1, descending=True)),
         )
         log(f"kernel K3 fused={fused}", live=int((got[2] > 0).sum()), **entry)
+        device_jobs.append((f"K3 fused={fused}", lambda vc=vc: kernels.sort_slots(sides, M, rmv_vc=vc),
+                            "sort_slots_kernel"))
         if fused:
             rows_out["sort_slots"] = entry
-    return rows_out
+    return rows_out, device_jobs
 
 
 def phase_main_path(torch, card: str):
@@ -210,17 +276,29 @@ def phase_main_path(torch, card: str):
     rp = DenseReplay(dense, R)
     gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7))
     batches = [gen.next_batch(B, BR) for _ in range(ROUNDS)]  # set-up, on the card
-    wrappers = (kernels.scatter_max_rows_, delta_place, kernels.sort_slots)
-    for w in wrappers:
+    wrappers = {
+        "scatter_max_rows": kernels.scatter_max_rows_,
+        "scatter_max_rows_copy": kernels.scatter_max_rows_copy,
+        "delta_place": delta_place,
+        "sort_slots": kernels.sort_slots,
+    }
+    main_path = ("scatter_max_rows_copy", "delta_place", "sort_slots")
+    for w in wrappers.values():
         w.launches = 0
     sync()
-    apply_ms, sync_ms = [], []
+    # Phase 3's inputs stay allocated until their device times are taken
+    # after phase 5: the main path's peak is counted above them.
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    apply_ms, sync_ms, per_round = [], [], []
     t_all = time.perf_counter()
     for rnd, ops in enumerate(batches):
+        before = {n: w.launches for n, w in wrappers.items()}
         t0 = time.perf_counter()
         rp.apply(ops)
         sync()
         apply_ms.append((time.perf_counter() - t0) * 1e3)
+        per_round.append({n: w.launches - before[n] for n, w in wrappers.items()})
         if (rnd + 1) % SYNC_EVERY == 0:
             t0 = time.perf_counter()
             rp.sync()
@@ -229,13 +307,10 @@ def phase_main_path(torch, card: str):
     obs = rp.observe()
     sync()
     total_s = time.perf_counter() - t_all
-    launches = {
-        "scatter_max_rows": kernels.scatter_max_rows_.launches,
-        "delta_place": delta_place.launches,
-        "sort_slots": kernels.sort_slots.launches,
-    }
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for rnd, got in enumerate(per_round):
+        if min(got[n] for n in main_path) < 1:
+            raise AssertionError(f"apply round {rnd} did not launch every main-path kernel: {got}")
     if tuple(obs.ids.shape) != (R, 1, K) or not bool(obs.valid.any()):
         raise AssertionError("empty or misshapen observable")
     if not rp.converged():
@@ -245,12 +320,13 @@ def phase_main_path(torch, card: str):
     apply_sorted = sorted(apply_ms)
     merges = R * (B + BR) * ROUNDS
     log("main", card=card, rounds=ROUNDS, syncs=len(sync_ms), launches=launches,
+        launches_per_apply=per_round[-1],
         apply_ms=apply_ms, sync_ms=sync_ms,
         p50_round_ms=apply_sorted[len(apply_sorted) // 2],
         merges_per_s=merges / total_s,
         apply_merges_per_s=merges / (sum(apply_ms) / 1e3),
         valid_observed=int(obs.valid.sum()),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        peak_mem_gb=(torch.cuda.max_memory_allocated() - mem_base) / 1e9)
     return launches, rp, gen
 
 
@@ -320,14 +396,18 @@ def main() -> int:
         return 2
     card = phase_device(torch)
     phase_build()
-    rows = phase_kernels(torch)
+    rows, device_jobs = phase_kernels(torch)
     launches, rp, gen = phase_main_path(torch, card)
     phase_profile(torch, rp, gen.next_batch(B, BR))
-    del rp
+    del rp, gen
+    log("device times", **{label: device_ms(torch, fn, kernel) for label, fn, kernel in device_jobs})
+    del device_jobs
     phase_identity(torch)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
+        "scatter_max_rows_copy": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
+                                  "antidote_ccrdt_tpu/ops/pallas_kernels.py:332"),
         "delta_place": ("antidote_ccrdt_tpu_torch/csrc/delta_place.cu",
                         "antidote_ccrdt_tpu/ops/delta_place.py:136"),
         "sort_slots": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",

@@ -68,6 +68,40 @@ def k2_inputs(seed):
     return score, ts, dc, kid, rank, keep, T, M, D
 
 
+def k2_stream(seed, case):
+    """A sorted stream as the engine hands K2 (kid nondecreasing; ranks
+    counted within each kid run, exact duplicates not ranked and not
+    kept; invalid entries under the sentinel T at the tail), shaped to
+    reach the kernel's edges: "hot", a kid run longer than one tile of
+    256 ids x M cells; "invalid", a replica with no valid entry; "sparse",
+    kids in a few ids of a large T, so most tiles find an empty range;
+    "ragged", T not a multiple of the tile."""
+    rng = np.random.default_rng(400 + seed)
+    R, M, B = 3, 4, 3000
+    T = {"hot": 1024, "invalid": 700, "sparse": 20_000, "ragged": 1000}[case]
+    kid = rng.integers(0, T + 1, (R, B)).astype(np.int32)
+    if case == "hot":
+        kid[:, : 2 * 256 * M] = 517
+    if case == "sparse":
+        kid = np.where(kid < T, kid % 9 + 3 * (kid % 5) * 1000, kid).astype(np.int32)
+    if case == "invalid":
+        kid[1] = T
+    kid = np.sort(kid, axis=1)
+    rank = np.zeros((R, B), np.int32)
+    live = (kid < T) & (rng.random((R, B)) >= 0.2)  # the rest: duplicates, sentinels
+    for r in range(R):
+        seen = {}
+        for j in np.flatnonzero(live[r]):
+            rank[r, j] = seen.get(kid[r, j], 0)
+            seen[kid[r, j]] = rank[r, j] + 1
+    keep = live & (rank < M)
+    score = rng.integers(I32_MIN, I32_MAX, (R, B), dtype=np.int64).astype(np.int32)
+    score[0, 0] = I32_MAX
+    ts = rng.integers(1, I32_MAX, (R, B)).astype(np.int32)
+    dc = rng.integers(0, 32, (R, B)).astype(np.int32)
+    return score, ts, dc, kid, rank, keep, T, M
+
+
 SCORES = np.array([I32_MIN, NEG_INF, -3, 0, 1, 2, 5, I32_MAX], np.int32)
 
 
@@ -102,18 +136,53 @@ def canonical_side(rng, shape, D):
 
 @pytest.mark.cuda
 def test_k1_kernel_matches_plain_on_card(cuda):
+    # The in-place K1; the main path's out-of-place form is K1c below.
     table, rows, upd = k1_inputs(0, R=4, T=1000, D=32, B=512)
     n0 = kernels.scatter_max_rows_.launches
-    got = scatter_max_rows(t(table).to(cuda), t(rows).to(cuda), t(upd).to(cuda))
+    got = kernels.scatter_max_rows_(t(table).to(cuda), t(rows).to(cuda), t(upd).to(cuda))
     torch.cuda.synchronize()
     assert kernels.scatter_max_rows_.launches == n0 + 1
-    assert torch.equal(got.cpu(), scatter_max_rows(t(table), t(rows), t(upd)))
+    assert torch.equal(got.cpu(), kernels.scatter_max_rows_plain_(t(table), t(rows), t(upd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("T,D", [(1000, 32), (777, 5), (300, 33), (40, 8192)])
+def test_k1c_kernel_matches_plain_on_card(cuda, T, D, view):
+    # T not a multiple of the tile (8192 / D rows), D whose rows break
+    # 16-byte alignment, duplicate and out-of-range rows, INT32_MAX
+    # updates; the table contiguous or a stride-0 broadcast view.
+    table, rows, upd = k1_inputs(1, R=4, T=T, D=D, B=512)
+    tab = t(table).to(cuda)
+    if view:
+        tab = tab[:1].expand(tab.shape)
+    before = tab.clone()
+    n0 = kernels.scatter_max_rows_copy.launches
+    got = scatter_max_rows(tab, t(rows).to(cuda), t(upd).to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.scatter_max_rows_copy.launches == n0 + 1
+    assert torch.equal(tab, before)
+    want = kernels.scatter_max_rows_copy_plain(tab.cpu(), t(rows), t(upd))
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(3))
 def test_k2_kernel_matches_plain_on_card(cuda, seed):
     score, ts, dc, kid, rank, keep, T, M, _ = k2_inputs(seed)
+    args = [t(x) for x in (score, ts, dc, kid, rank, keep)]
+    n0 = delta_place.launches
+    got = delta_place(*(x.to(cuda) for x in args), T, M)
+    torch.cuda.synchronize()
+    assert delta_place.launches == n0 + 1
+    for g, w in zip(got, delta_place_plain(*args, T, M)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot", "invalid", "sparse", "ragged"])
+def test_k2_kernel_edge_streams_on_card(cuda, case):
+    score, ts, dc, kid, rank, keep, T, M = k2_stream(0, case)
     args = [t(x) for x in (score, ts, dc, kid, rank, keep)]
     n0 = delta_place.launches
     got = delta_place(*(x.to(cuda) for x in args), T, M)

@@ -17,6 +17,8 @@ from antidote_ccrdt_tpu.models.topk_rmv_dense import _join_slots_union, _sort_sl
 from antidote_ccrdt_tpu.ops import pallas_kernels as jpk
 from antidote_ccrdt_tpu.ops.delta_place import delta_place_pallas
 from antidote_ccrdt_tpu.ops.dense_table import scatter_max_rows_mxu
+from antidote_ccrdt_tpu_torch import convert, registry
+from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
 from antidote_ccrdt_tpu_torch.ops import kernels
 from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
 from antidote_ccrdt_tpu_torch.ops.dense_table import NEG_INF, scatter_max_rows
@@ -44,6 +46,42 @@ def test_k1_plain_matches_pallas_and_xla(seed, vmax):
     got = scatter_max_rows(t(table), t(rows), t(upd))
     assert eq(got, want_pallas)
     assert eq(got, want_xla)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k1_broadcast_view_matches_contiguous_and_jax(seed):
+    # DenseReplay's rows after a sync: one replica row seen R times
+    # (stride 0), which the out-of-place scatter-max (K1c) reads in place.
+    table, rows, upd = k1_inputs(10 + seed)
+    row = t(table[:1])
+    view = row.expand(table.shape)
+    assert view.stride(0) == 0
+    got = scatter_max_rows(view, t(rows), t(upd))
+    assert torch.equal(got, scatter_max_rows(view.contiguous(), t(rows), t(upd)))
+    full = jnp.asarray(np.broadcast_to(table[:1], table.shape))
+    want_xla = jax.vmap(scatter_max_rows_mxu)(full, jnp.asarray(rows), jnp.asarray(upd))
+    want_pallas = jpk.scatter_max_rows_onehot_pallas(full, jnp.asarray(rows), jnp.asarray(upd), True)
+    assert eq(got, want_xla)
+    assert eq(got, want_pallas)
+    assert torch.equal(row, t(table[:1]))
+
+
+def test_k1c_wrapper_checks_inputs_and_takes_any_layout():
+    table, rows, upd = k1_inputs(6)
+    want = scatter_max_rows(t(table), t(rows), t(upd))
+    # A table whose inner [T, D] block is not contiguous is taken as it is
+    # on the CPU and copied first on a card.
+    odd = t(table).transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(kernels.scatter_max_rows_copy(odd, t(rows), t(upd)), want)
+    assert torch.equal(kernels.scatter_max_rows_copy(t(table), t(rows).T.contiguous().T, t(upd)), want)
+    with pytest.raises(TypeError):
+        kernels.scatter_max_rows_copy(t(table).long(), t(rows), t(upd))
+    with pytest.raises(ValueError):
+        kernels.scatter_max_rows_copy(t(table), t(rows)[:, :-1], t(upd))
+    with pytest.raises(ValueError):
+        kernels.scatter_max_rows_copy(
+            torch.empty(table.shape, dtype=torch.int32, device="meta"), t(rows), t(upd)
+        )
 
 
 def test_k1_functional_copy_leaves_input_alone():
@@ -93,6 +131,58 @@ def test_k2_plain_matches_pallas_and_xla(seed):
     for g, w, x in zip(got, want, xla):
         assert eq(g, w)
         assert eq(g, x)
+
+
+def engine_stream_ops(seed, R=2, NK=2, I=40, D=3, B=1200, hot=1100):
+    """Adds whose sorted stream has a hot id's run longer than one tile of
+    the CUDA kernel (256 ids x M=4 cells), exact duplicates that drop out
+    of the rank count mid-stream, and invalid adds."""
+    rng = np.random.default_rng(300 + seed)
+    ops = {
+        "add_key": rng.integers(0, NK, (R, B)),
+        "add_id": np.minimum(rng.zipf(1.2, (R, B)) - 1, I - 1),
+        "add_score": rng.integers(0, 40, (R, B)),
+        "add_dc": rng.integers(0, D, (R, B)),
+        "add_ts": rng.integers(1, 30, (R, B)),
+        "rmv_key": np.zeros((R, 1)), "rmv_id": np.full((R, 1), -1), "rmv_vc": np.zeros((R, 1, D)),
+    }
+    ops["add_key"][:, :hot], ops["add_id"][:, :hot] = 1, 7
+    for f in ("add_key", "add_id", "add_score", "add_dc", "add_ts"):
+        ops[f][:, 1::6] = ops[f][:, 0::6][:, : ops[f][:, 1::6].shape[1]]
+    ops["add_ts"][:, 5::50] = 0  # padding
+    ops["add_id"][:, 7::40] = I  # out of range
+    return {k: np.ascontiguousarray(v, dtype=np.int32) for k, v in ops.items()}, NK, I, D
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k2_on_engine_stream_matches_pallas_and_xla(seed):
+    arrs, NK, I, D = engine_stream_ops(seed)
+    M = 4
+    eng = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, slots_per_id=M, device="cpu")
+    st = eng.add_stream(convert.from_numpy(TopkRmvOps, arrs, "cpu"), NK)
+    T = NK * I
+    kid, kid3, keep, rank = (x.numpy() for x in (st.kid, st.kid3, st.keep, st.rank))
+    hot = (kid == 1 * I + 7).sum(1)
+    assert (hot > 256 * M).all()
+    assert ((kid3 != kid) & (kid < T)).any()  # dropped duplicates inside the stream
+    cols = (st.score, st.ts, st.dc)
+    got = delta_place(*cols, st.kid, st.rank, st.keep, T, M)
+    want = delta_place_pallas(
+        *(jnp.asarray(x.numpy()) for x in (*cols, st.kid, st.rank, st.keep)), T, M, D, True
+    )
+    # The JAX engine's three scatters (models/topk_rmv_dense.py:612-622).
+    B = kid.shape[1]
+    kid3d = np.where(keep, kid3, T)
+    rank3 = np.where(keep, rank, M + np.arange(B, dtype=np.int32))
+    for g, w, vals, fill in zip(got, want, (st.score, st.dc, st.ts), (NEG_INF, 0, 0)):
+        assert eq(g, w)
+        xla = jnp.stack([
+            jnp.full((T, M), fill, jnp.int32)
+            .at[kid3d[r], rank3[r]].set(jnp.asarray(vals[r].numpy()), mode="drop", unique_indices=True)
+            for r in range(kid.shape[0])
+        ])
+        assert eq(g, xla)
+    assert int(st.keep.sum()) > 0
 
 
 # --- K3 -------------------------------------------------------------------
@@ -180,12 +270,13 @@ def test_oddeven_network_matches_jax():
 
 
 def test_cpu_wrappers_do_not_count_launches():
-    before = (kernels.scatter_max_rows_.launches, delta_place.launches, kernels.sort_slots.launches)
+    counters = (kernels.scatter_max_rows_, kernels.scatter_max_rows_copy, delta_place, kernels.sort_slots)
+    before = [w.launches for w in counters]
     table, rows, upd = k1_inputs(5)
     scatter_max_rows(t(table), t(rows), t(upd))
+    kernels.scatter_max_rows_(t(table), t(rows), t(upd))
     score, ts, dc, kid, rank, keep, T, M, _ = k2_inputs(0)
     delta_place(*(t(x) for x in (score, ts, dc, kid, rank, keep)), T, M)
     s, d, tt = raw_slots(np.random.default_rng(0), (4, 8), 3)
     kernels.sort_slots([(t(s), t(d), t(tt))], 4)
-    after = (kernels.scatter_max_rows_.launches, delta_place.launches, kernels.sort_slots.launches)
-    assert before == after
+    assert [w.launches for w in counters] == before

@@ -126,6 +126,21 @@ def test_multi_round_apply_matches_jax(mode, promotions):
     assert pe.value(ps) == je.value(js)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_add_stream_kid_is_sorted_and_agrees_with_kid3(seed):
+    # The delta placement (K2) searches each replica's stream by `kid`, so
+    # it must be nondecreasing; kid3 marks dropped duplicates with the
+    # sentinel mid-stream. Both agree on every live (and so every kept) entry.
+    _, pe = ENGINES[4]
+    ops = both_ops(random_ops(np.random.default_rng(40 + seed)))[1]
+    st = pe.add_stream(ops, NK)
+    assert bool((st.kid[:, 1:] >= st.kid[:, :-1]).all())
+    live = st.kid3 < NK * I
+    assert torch.equal(st.kid[live], st.kid3[live])
+    assert bool((st.keep <= live).all()) and bool(st.keep.any())
+    assert bool(((st.kid3 != st.kid) & (st.kid < NK * I)).any())
+
+
 def test_merge_observe_value_equal_match_jax():
     je, pe = ENGINES[4]
     rng = np.random.default_rng(11)
