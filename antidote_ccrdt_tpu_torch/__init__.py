@@ -15,13 +15,35 @@ This package imports torch and numpy only: never jax, never any module
 of ``antidote_ccrdt_tpu`` (whose package ``__init__`` imports jax).
 
 Ported so far: the dense topk_rmv engine (``apply_ops``, ``merge``,
-``observe``), its effect-op generator and the multi-DC ``DenseReplay``.
+``observe``), its effect-op generator and the multi-DC ``DenseReplay``;
+``batch_merge`` for the six type names, with the scalar models, the clock,
+the snapshot codec, ETF/wire, and the topk and leaderboard dense engines.
 """
 
-from .core.behaviour import MergeKind, Registry, registry  # noqa: F401
+from .core.batch_merge import batch_merge  # noqa: F401
+from .core.behaviour import (  # noqa: F401
+    DenseCCRDT,
+    MergeKind,
+    Registry,
+    ScalarCCRDT,
+    registry,
+)
+from .core.clock import LogicalClock, ReplicaContext, WallClock, make_contexts  # noqa: F401
 from .device import resolve_device  # noqa: F401
 
 # Importing the model modules registers every ported type.
-from .models import topk_rmv_dense  # noqa: F401,E402
+from .models import average, leaderboard, topk, topk_rmv, topk_rmv_dense, wordcount  # noqa: F401,E402
+
+
+def is_type(name) -> bool:
+    """Rebuild of ``antidote_ccrdt:is_type/1`` (``antidote_ccrdt.erl:61-62``)."""
+    return registry.is_type(name)
+
+
+def generates_extra_operations(name) -> bool:
+    """Rebuild of ``antidote_ccrdt:generates_extra_operations/1``
+    (``antidote_ccrdt.erl:64-65``)."""
+    return registry.generates_extra_operations(name)
+
 
 __version__ = "0.1.0"

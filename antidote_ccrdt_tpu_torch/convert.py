@@ -4,7 +4,13 @@ The JAX package's pytrees (dataclasses and NamedTuples of arrays) leave
 through ``np.asarray(leaf)`` — any object with the port's field names as
 attributes and array-like leaves will do, so this module needs no jax.
 Back the other way, `to_numpy` gives a dict of numpy arrays that the JAX
-side rebuilds with ``JaxCls(**{k: jnp.asarray(v) ...})``.
+side rebuilds with ``JaxCls(**{k: jnp.asarray(v) ...})``. Dense states of
+every ported engine (``TopkRmvDenseState``, ``TopkDenseState``,
+``LeaderboardDenseState``) cross this way.
+
+Scalar states are plain Python: NamedTuples cross field by field with
+`scalar_state` (the JAX package's ``TopkState`` becomes this package's,
+and back), tuples and dicts as they are.
 """
 
 from __future__ import annotations
@@ -50,3 +56,13 @@ def to_numpy(obj: Any) -> Dict[str, Optional[Any]]:
         else:
             out[name] = to_numpy(leaf)
     return out
+
+
+def scalar_state(state: Any, cls: Optional[type] = None) -> Any:
+    """A scalar state as an instance of `cls`, field by field: a
+    NamedTuple state of one package becomes the other's class of the same
+    fields. Without `cls` (average's tuple, the wordcounts' dict) the state
+    is returned as it is; its values are plain Python either way."""
+    if cls is None:
+        return state
+    return cls(*state)

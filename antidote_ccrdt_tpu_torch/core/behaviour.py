@@ -1,16 +1,27 @@
-"""The dense half of the CCRDT behaviour contract (port of
+"""The CCRDT behaviour contract (port of
 ``antidote_ccrdt_tpu/core/behaviour.py``).
 
-Dense states are dataclasses of tensors with leading batch axes
-``[n_replicas, n_keys, ...]``; ``apply_ops`` and ``merge`` process every
-(replica, key) instance in one call. The scalar half (one instance, one
-op at a time) is ported with the batch_merge slice.
+Two levels, as in the JAX package:
+
+* **Scalar level** (`ScalarCCRDT`): one CRDT instance, one op at a time,
+  pure Python, the reference's 12 callbacks (``antidote_ccrdt.erl:47-59``).
+  The port keeps its own copies of the JAX package's scalar models.
+* **Dense level** (`DenseCCRDT`): states are dataclasses of tensors with
+  leading batch axes ``[n_replicas, n_keys, ...]``; ``apply_ops`` and
+  ``merge`` process every (replica, key) instance in one call.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, Optional, Protocol, Tuple, runtime_checkable
+
+from .clock import ClockContext
+
+# A prepare-side operation submitted by a client, e.g. ("add", (id, score)).
+PrepareOp = Tuple[str, Any]
+# A downstream effect op, e.g. ("add", (id, score, (dc, ts))).
+EffectOp = Tuple[str, Any]
 
 
 class MergeKind(enum.Enum):
@@ -26,24 +37,107 @@ class MergeKind(enum.Enum):
     MONOID = "monoid"
 
 
+@runtime_checkable
+class ScalarCCRDT(Protocol):
+    """Single-instance, single-op semantics, the reference's callbacks.
+    Replica identity and time come in through a `ClockContext`."""
+
+    type_name: str
+
+    def new(self, *args: Any) -> Any: ...
+
+    def value(self, state: Any) -> Any: ...
+
+    def downstream(self, op: PrepareOp, state: Any, ctx: ClockContext) -> Optional[EffectOp]:
+        """The effect op of a prepare op at its origin; None when it cannot
+        change any replica (the reference's ``{ok, noop}``)."""
+        ...
+
+    def update(self, effect: EffectOp, state: Any) -> Tuple[Any, list]:
+        """(new_state, extra effect ops to re-ship), the list always present."""
+        ...
+
+    def require_state_downstream(self, op: PrepareOp) -> bool: ...
+
+    def is_operation(self, op: Any) -> bool: ...
+
+    def can_compact(self, e1: EffectOp, e2: EffectOp) -> bool: ...
+
+    def compact_ops(self, e1: EffectOp, e2: EffectOp) -> Tuple[Optional[EffectOp], Optional[EffectOp]]:
+        """Pairwise op-log compaction; None marks a deleted slot."""
+        ...
+
+    def is_replicate_tagged(self, effect: EffectOp) -> bool: ...
+
+    def equal(self, a: Any, b: Any) -> bool: ...
+
+    def to_binary(self, state: Any) -> bytes: ...
+
+    def from_binary(self, data: bytes) -> Any: ...
+
+
+@runtime_checkable
+class DenseCCRDT(Protocol):
+    """Batched dense semantics: states whose tensors carry leading axes
+    ``[n_replicas, n_keys, ...]``."""
+
+    type_name: str
+    merge_kind: MergeKind
+
+    def init(self, n_replicas: int, n_keys: int) -> Any: ...
+
+    def apply_ops(self, state: Any, ops: Any) -> Tuple[Any, Any]:
+        """Apply one [n_replicas, batch] op batch; (new_state, extras)."""
+        ...
+
+    def merge(self, a: Any, b: Any) -> Any:
+        """Two-way merge with `merge_kind` algebra."""
+        ...
+
+    def observe(self, state: Any) -> Any: ...
+
+
 class Registry:
-    """Dense type registry: the rebuild of ``antidote_ccrdt:is_type/1``
-    for the engines ported so far."""
+    """Type registry: the rebuild of ``antidote_ccrdt:is_type/1`` and
+    ``generates_extra_operations/1`` (``antidote_ccrdt.erl:61-65``) for the
+    types ported so far."""
 
     def __init__(self) -> None:
+        self._scalar: Dict[str, ScalarCCRDT] = {}
         self._dense_factory: Dict[str, Any] = {}
+        self._extra_ops: set = set()
 
-    def register(self, name: str, dense_factory: Any) -> None:
-        self._dense_factory[name] = dense_factory
+    def register(
+        self,
+        name: str,
+        scalar: Optional[ScalarCCRDT] = None,
+        dense_factory: Optional[Any] = None,
+        generates_extra_operations: bool = False,
+    ) -> None:
+        if scalar is not None:
+            self._scalar[name] = scalar
+        if dense_factory is not None:
+            self._dense_factory[name] = dense_factory
+        if generates_extra_operations:
+            self._extra_ops.add(name)
 
     def is_type(self, name: Any) -> bool:
-        return isinstance(name, str) and name in self._dense_factory
+        return isinstance(name, str) and (name in self._scalar or name in self._dense_factory)
+
+    def generates_extra_operations(self, name: Any) -> bool:
+        return self.is_type(name) and name in self._extra_ops
+
+    def scalar(self, name: str) -> ScalarCCRDT:
+        return self._scalar[name]
 
     def make_dense(self, name: str, **params: Any) -> Any:
         """Construct a dense engine with explicit capacities. ``device``
         (default: the CUDA card, raising without one) is one of the
         params."""
         return self._dense_factory[name](**params)
+
+    def scalar_types(self) -> Iterable[str]:
+        return self._scalar.keys()
 
     def dense_types(self) -> Iterable[str]:
         return set(self._dense_factory)

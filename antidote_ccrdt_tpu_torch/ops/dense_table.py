@@ -36,6 +36,25 @@ def scatter_max_rows(table: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor)
     return scatter_max_rows_copy(table, rows, upd)
 
 
+def table_addresses(shape, key: torch.Tensor, id_: torch.Tensor, valid: torch.Tensor):
+    """Flat addresses into a [R, NK, P] table of the [R, B] ops that land
+    in it, and the [R, B] mask of those ops, as the JAX package's
+    ``table.at[key, id].op(..., mode="drop")`` per replica: an index in
+    [-n, 0) wraps to index + n (jnp indexing normalises it) and one
+    outside [-n, n) drops the op, as does ``valid`` False."""
+    R, NK, P = shape
+
+    def wrap(idx, n):
+        idx = idx.to(torch.int64)
+        return torch.where(idx < 0, idx + n, idx), (idx >= -n) & (idx < n)
+
+    k, k_in = wrap(key, NK)
+    i, i_in = wrap(id_, P)
+    keep = valid & k_in & i_in
+    r = torch.arange(R, device=k.device)[:, None]
+    return ((r * NK + k) * P + i)[keep], keep
+
+
 def neg_i32(x: torch.Tensor) -> torch.Tensor:
     """int32 negation with two's-complement wrap (-INT32_MIN == INT32_MIN,
     as in XLA), widened to int64 for key packing."""

@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA kernels K1 (``scatter_max_rows_``, in
 place), K1c (``scatter_max_rows_copy``, out of place: the main path's
-tombstone update) and K3 (``sort_slots``), with their plain PyTorch
-versions.
+tombstone update) and K3 (``sort_slots``: a register network for rows of
+up to 16 candidates, the wide shared-memory path above), with their plain
+PyTorch versions.
 
 A wrapper checks device, dtype, shape and contiguity and raises on what it
 does not take. For CUDA tensors it launches its kernel (built from
@@ -27,7 +28,8 @@ from .dense_table import NEG_INF
 I32 = torch.int32
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-MAX_SLOTS = 16  # K3 keeps one row's candidates in registers
+MAX_SLOTS = 16  # the widest row K3's register network takes
+WIDE_MAX_SLOTS = 8192  # the widest row whose candidates fit one block's shared memory
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -54,43 +56,6 @@ def kernel_device(*tensors: Optional[torch.Tensor]) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cuda"
-
-
-# --- comparator network ---------------------------------------------------
-
-
-def oddeven_network(n: int) -> List[Tuple[int, int]]:
-    """Batcher odd-even mergesort comparator pairs for `n` inputs.
-
-    Generated for the next power of two; pairs touching virtual inputs
-    >= n are dropped, which is sound because missing inputs rank strictly
-    last and a descending compare-exchange never moves a minimal element
-    up. (Port of ``ops/pallas_kernels.py:65``; ``csrc/sort_slots.cu``
-    spells out ``oddeven_network(8)`` and ``(16)``.)"""
-    m = 1
-    while m < n:
-        m *= 2
-    pairs: List[Tuple[int, int]] = []
-
-    def merge(lo: int, cnt: int, r: int) -> None:
-        step = r * 2
-        if step < cnt:
-            merge(lo, cnt, step)
-            merge(lo + r, cnt, step)
-            for i in range(lo + r, lo + cnt - r, step):
-                pairs.append((i, i + r))
-        else:
-            pairs.append((lo, lo + r))
-
-    def sort(lo: int, cnt: int) -> None:
-        if cnt > 1:
-            half = cnt // 2
-            sort(lo, half)
-            sort(lo + half, half)
-            merge(lo, cnt, 1)
-
-    sort(0, m)
-    return [(i, j) for (i, j) in pairs if j < n]
 
 
 # --- K1: tombstone row scatter-max ----------------------------------------
@@ -222,12 +187,15 @@ def sort_slots(
 
     `sides` is one or two (score, dc, ts) triples of i32[..., w] with
     the same leading shape; the row's candidates are side a's w_a
-    followed by side b's w_b (W = w_a + w_b; the CUDA kernel takes
-    W <= 16, the plain version any W). With `rmv_vc` i32[..., D]
-    the add-wins filter ``ts > dom_lookup(dc, rmv_vc)`` runs first and
-    filtered candidates rank after every live one: for two sides that
-    each keep the slot invariant this is the union join
-    (``_join_slots_union``); without it, ``sort_slots_pallas``.
+    followed by side b's w_b (W = w_a + w_b). On a card, rows of W <=
+    MAX_SLOTS go through the register network (``launches``), wider rows
+    up to WIDE_MAX_SLOTS through the shared-memory path
+    (``wide_launches``), and a wider row raises; the plain version takes
+    any W. With `rmv_vc` i32[..., D] the add-wins filter ``ts >
+    dom_lookup(dc, rmv_vc)`` runs first and filtered candidates rank
+    after every live one: for two sides that each keep the slot
+    invariant this is the union join (``_join_slots_union``); without
+    it, ``sort_slots_pallas``.
 
     Returns (score, dc, ts) i32[..., m_keep] and n_live i32[...], the
     number of slots with ts > 0 before truncation."""
@@ -240,8 +208,11 @@ def sort_slots(
         _check("rmv_vc", rmv_vc, I32, lead + (rmv_vc.shape[-1],))
     if not kernel_device(*flat, rmv_vc):
         return sort_slots_plain(sides, m_keep, rmv_vc)
-    if W > MAX_SLOTS:
-        raise ValueError(f"the CUDA kernel takes W <= {MAX_SLOTS} candidates per row, not {W}")
+    if W > WIDE_MAX_SLOTS:
+        raise ValueError(
+            f"the CUDA kernel takes W <= {WIDE_MAX_SLOTS} candidates per row "
+            f"(one block's shared memory), not {W}"
+        )
     dev = flat[0].device
     o_s = torch.empty(lead + (m_keep,), dtype=I32, device=dev)
     o_d = torch.empty_like(o_s)
@@ -253,7 +224,8 @@ def sort_slots(
     a = sides[0]
     b = sides[1] if len(sides) == 2 else (None, None, None)
     wb = widths[1] if len(sides) == 2 else 0
-    fn = _build.load("sort_slots", _K3_ARGS)
+    symbol = "sort_slots" if W <= MAX_SLOTS else "sort_slots_wide"
+    fn = _build.load("sort_slots", _K3_ARGS, symbol)
     D = rmv_vc.shape[-1] if rmv_vc is not None else 0
     rc = fn(
         _ptr(a[0]), _ptr(a[1]), _ptr(a[2]), widths[0],
@@ -262,12 +234,16 @@ def sort_slots(
         _ptr(o_s), _ptr(o_d), _ptr(o_t), _ptr(n_live),
         N, m_keep, ctypes.c_void_p(cuda_stream_handle(o_s)),
     )
-    _build.check(rc, "sort_slots")
-    sort_slots.launches += 1
+    _build.check(rc, symbol)
+    if W <= MAX_SLOTS:
+        sort_slots.launches += 1
+    else:
+        sort_slots.wide_launches += 1
     return o_s, o_d, o_t, n_live
 
 
 sort_slots.launches = 0
+sort_slots.wide_launches = 0
 _K3_ARGS = (
     [ctypes.c_void_p] * 3 + [ctypes.c_int]  # side a, w_a
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # side b, w_b
@@ -277,57 +253,54 @@ _K3_ARGS = (
 )
 
 
+def _slot_order(live, s, t, d):
+    """Permutation sorting each row best-first by (live desc, score desc,
+    ts desc, dc asc), compared directly: two stable sorts of exactly
+    packed int64 key pairs, the minor pair first (``~x`` is -1 - x, so
+    ascending ``~x`` is descending x with no overflow)."""
+    low = (~t).to(torch.int64) * 2**32 + (d.to(torch.int64) + 2**31)
+    high = (-live).to(torch.int64) * 2**32 + ((~s).to(torch.int64) + 2**31)
+    p1 = torch.sort(low, dim=-1, stable=True).indices
+    p2 = torch.sort(torch.gather(high, -1, p1), dim=-1, stable=True).indices
+    return torch.gather(p1, -1, p2)
+
+
 def sort_slots_plain(
     sides: Sequence[Triple],
     m_keep: int,
     rmv_vc: Optional[torch.Tensor] = None,
 ):
-    """Plain version of K3: the same network over per-candidate columns.
+    """Plain version of K3, for any W: filter, sort, blank the duplicates,
+    sort again, with torch sorts over each row's W candidates.
 
-    Each comparator compares (live desc, score desc, ts desc, dc asc);
-    without a filter every candidate is live, so the order is the TPU
-    kernel's direct (score, ts, dc) compare (``_cmpx_desc``)."""
-    s = [c for side in sides for c in side[0].unbind(-1)]
-    d = [c for side in sides for c in side[1].unbind(-1)]
-    t = [c for side in sides for c in side[2].unbind(-1)]
-    W = len(s)
+    The order is (live desc, score desc, ts desc, dc asc); without a
+    filter every candidate is live, so it is the TPU kernel's direct
+    (score, ts, dc) compare (``_cmpx_desc``). Equal candidates are equal
+    in all four keys, so any correct sort gives the kernel's rows."""
+    s = torch.cat([side[0] for side in sides], -1)
+    d = torch.cat([side[1] for side in sides], -1)
+    t = torch.cat([side[2] for side in sides], -1)
     fused = rmv_vc is not None
-    neg = torch.full_like(s[0], NEG_INF)
-    zero = torch.zeros_like(s[0])
-    one = torch.ones_like(s[0])
-    live = [one] * W
+    live = torch.ones_like(s)
     if fused:
-        for i in range(W):
-            ok = t[i] > dom_lookup(d[i][..., None], rmv_vc)[..., 0]
-            s[i] = torch.where(ok, s[i], neg)
-            d[i] = torch.where(ok, d[i], zero)
-            t[i] = torch.where(ok, t[i], zero)
-            live[i] = ok.to(I32)
+        ok = t > dom_lookup(d, rmv_vc)
+        s = torch.where(ok, s, NEG_INF)
+        d = torch.where(ok, d, 0)
+        t = torch.where(ok, t, 0)
+        live = ok.to(I32)
 
-    net = oddeven_network(W)
+    def ordered(cols):
+        perm = _slot_order(*cols)
+        return [torch.gather(c, -1, perm) for c in cols]
 
-    def network():
-        for i, j in net:
-            sw = (live[j] > live[i]) | (live[j] == live[i]) & (
-                (s[j] > s[i])
-                | (s[j] == s[i]) & ((t[j] > t[i]) | (t[j] == t[i]) & (d[j] < d[i]))
-            )
-            for col in (s, d, t, live):
-                col[i], col[j] = torch.where(sw, col[j], col[i]), torch.where(sw, col[i], col[j])
-
-    network()
-    dead_live = zero if fused else one
-    for i in range(W - 1, 0, -1):
-        dup = (s[i] == s[i - 1]) & (t[i] == t[i - 1]) & (d[i] == d[i - 1]) & (t[i] > 0)
-        s[i] = torch.where(dup, neg, s[i])
-        d[i] = torch.where(dup, zero, d[i])
-        t[i] = torch.where(dup, zero, t[i])
-        live[i] = torch.where(dup, dead_live, live[i])
-    network()
-    n_live = sum((x > 0).to(I32) for x in t)
-    return (
-        torch.stack(s[:m_keep], -1),
-        torch.stack(d[:m_keep], -1),
-        torch.stack(t[:m_keep], -1),
-        n_live.to(I32),
-    )
+    live, s, t, d = ordered((live, s, t, d))
+    prev_same = (s[..., 1:] == s[..., :-1]) & (t[..., 1:] == t[..., :-1]) & (d[..., 1:] == d[..., :-1])
+    dup = torch.cat([torch.zeros_like(t[..., :1], dtype=torch.bool), prev_same], -1) & (t > 0)
+    s = torch.where(dup, NEG_INF, s)
+    d = torch.where(dup, 0, d)
+    t = torch.where(dup, 0, t)
+    if fused:
+        live = torch.where(dup, 0, live)
+    live, s, t, d = ordered((live, s, t, d))
+    n_live = (t > 0).sum(-1, dtype=I32)
+    return s[..., :m_keep].contiguous(), d[..., :m_keep].contiguous(), t[..., :m_keep].contiguous(), n_live

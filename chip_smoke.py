@@ -24,7 +24,17 @@ Phases, each printing one line (any failure exits non-zero):
    whose host launches it could slow);
 6. identity: a reduced seeded replay on the CPU (plain versions) and on
    the card (kernels) must end in bit-identical states;
-7. the kernels line, then the ok line.
+7. batch_merge: the north-star ``batch_merge("topk_rmv", states)`` of 32
+   scalar states (one DC each, 8 192 adds and 512 removals per state over
+   100 000 ids, K = 100), built from seeded draws (and checked against
+   the scalar ``update`` at a reduced size), held against an independent
+   host set join; the converter's canonicalising K3 call (W = M, the
+   register network) and every fold level's K3 join (W = 2M > 16, the wide
+   path) held against their plain versions on their full inputs and timed
+   against their byte bounds; host convert, fold and extract times; a reduced
+   ``batch_merge`` of each other type at its BASELINE.json replica count
+   equal on the card and the CPU; the wide path must have launched;
+8. the kernels line, then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -48,6 +58,12 @@ INT32_OPS_PER_S = 67e12  # H100 SXM scalar 32-bit rate (the fp32 non-tensor peak
 R, I, B, BR, M, K = 32, 100_000, 32_768, 2_048, 4, 100
 ROUNDS, SYNC_EVERY = 8, 4
 
+# The north-star batch_merge (BASELINE.json "topk_rmv K=100 with concurrent
+# add/rmv, 100k keys, 32 replicas"): N states, one DC each, uniform ids.
+BM_N, BM_IDS, BM_ADDS, BM_RMVS = 32, 100_000, 8_192, 512
+# The other types at their BASELINE.json replica counts, reduced in ops.
+BM_OTHERS = {"topk": 8, "leaderboard": 16, "wordcount": 64, "worddocumentcount": 64, "average": 2}
+
 
 def log(phase: str, **kw) -> None:
     print(f"[{phase}] " + json.dumps(kw, sort_keys=False), flush=True)
@@ -64,8 +80,9 @@ def max_abs_err(got, want) -> int:
 
 
 def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time per call of the CUDA kernel named `kernel` inside
-    `fn`, from torch.profiler (launch and host time excluded)."""
+    """Mean device time per launch of the CUDA kernel named `kernel` inside
+    `fn`, from torch.profiler (launch and host time excluded), over the
+    launches the profiler recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -75,11 +92,14 @@ def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and re.search(rf"\b{kernel}\b", e.key))
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and re.search(rf"\b{kernel}\b", e.key)]
+    us, calls = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
     if us <= 0:
         raise AssertionError(f"the profiler saw no device time of {kernel}")
-    return us / 1e3 / reps
+    if calls != reps:
+        print(f"[device times] note: the profiler recorded {calls} of {reps} launches of {kernel}", flush=True)
+    return us / 1e3 / calls
 
 
 def phase_device(torch):
@@ -159,7 +179,9 @@ def phase_kernels(torch):
     log("kernel K1", touched_rows=n_rows, copy_ms=cuda_time_ms(lambda: table.clone()),
         copy_bound_ms=bound_ms(2 * R * I * D * 4)[0], **rows_out["scatter_max_rows"])
     device_jobs.append(("K1", lambda: kernels.scatter_max_rows_(table, rows, upd), "scatter_max_rows_kernel"))
-    del buf, got, want
+    device_jobs.append(("K1 library", lambda b=buf, i=idx2, u=src2: b.view(R * I, D).scatter_reduce_(0, i, u, "amax"),
+                        "_scatter_gather_elementwise_kernel"))
+    del got, want
 
     # K1c: the same scatter-max out of place, on a contiguous table and on
     # DenseReplay's broadcast view after a sync (one row, replica stride 0).
@@ -189,7 +211,6 @@ def phase_kernels(torch):
         if form == "contiguous":
             rows_out["scatter_max_rows_copy"] = entry
         del got, want, before
-    del idx2, src2
 
     # K2: a real sorted add stream of the main path's first batch.
     eng = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=M)
@@ -385,6 +406,142 @@ def phase_identity(torch):
         fields=sorted(cpu[0]) + [f"observe.{k}" for k in cpu[1]], bit_identical=True)
 
 
+def phase_batch_merge(torch, card: str, dev: str = "cuda"):
+    """The north-star batch_merge through the entry point, its K3 joins at
+    W = 2M on the wide path, and the other types on the card and the CPU."""
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import batch_merge, registry
+    from antidote_ccrdt_tpu_torch.core import batch_merge as bm
+    from antidote_ccrdt_tpu_torch.harness import scalar_states as ss
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms, sync
+
+    # The one-pass construction against the scalar update, at a reduced size.
+    small = ss.topk_rmv_effects(4, 3_000, 600, 40, seed=5)
+    eng = registry.scalar("topk_rmv")
+    if [ss.apply_effects("topk_rmv", eng.new(K), e) for e in small] != [ss.topk_rmv_direct(e, K) for e in small]:
+        raise AssertionError("topk_rmv_direct disagrees with the scalar update")
+    t0 = time.perf_counter()
+    effects = ss.topk_rmv_effects(BM_N, BM_IDS, BM_ADDS, BM_RMVS, seed=13)
+    states = [ss.topk_rmv_direct(e, K) for e in effects]
+    build_s = time.perf_counter() - t0
+    del effects
+
+    wrappers = [kernels.scatter_max_rows_, kernels.scatter_max_rows_copy, delta_place, kernels.sort_slots]
+    for w in wrappers:
+        w.launches = 0
+    kernels.sort_slots.wide_launches = 0
+    sync()
+    t0 = time.perf_counter()
+    merged = batch_merge("topk_rmv", states, device=dev)
+    sync()
+    call_s = time.perf_counter() - t0
+    launches = {"sort_slots": kernels.sort_slots.launches, "sort_slots_wide": kernels.sort_slots.wide_launches,
+                "scatter_max_rows": kernels.scatter_max_rows_.launches,
+                "scatter_max_rows_copy": kernels.scatter_max_rows_copy.launches, "delta_place": delta_place.launches}
+    if launches["sort_slots_wide"] < 1:
+        raise AssertionError(f"batch_merge did not launch K3's wide path: {launches}")
+    t0 = time.perf_counter()
+    want = ss.topk_rmv_set_join(states)
+    join_s = time.perf_counter() - t0
+    if merged != want:
+        raise AssertionError("batch_merge disagrees with the host set join")
+
+    # The same call in its three stages, each timed. The converter's
+    # canonicalising K3 call (W = M, the register network) and each fold
+    # level's K3 join (W = 2M, the wide path) are held against their plain
+    # versions on their full inputs, and timed alone.
+    sync()
+    t0 = time.perf_counter()
+    dense, batch, ids, dcs = bm.topk_rmv_to_dense(states, dev)
+    sync()
+    convert_s = time.perf_counter() - t0
+    batch_gb = bm.tree_nbytes(batch) / 1e9
+    Mb, U, D = dense.M, len(ids), len(dcs)
+    if Mb <= 8:
+        raise AssertionError(f"M = {Mb}: the fold's joins would not reach the wide path")
+    raw = bm.topk_rmv_tables(states, dev)[0]
+    side = [(raw.slot_score, raw.slot_dc, raw.slot_ts)]
+    del raw
+    got = kernels.sort_slots(side, Mb)
+    ref = kernels.sort_slots_plain(side, Mb)
+    sync()
+    if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+        raise AssertionError(f"K3 at W = M = {Mb} (the converter's call) disagrees with its plain version")
+    if not all(torch.equal(x, y) for x, y in zip(got, (batch.slot_score, batch.slot_dc, batch.slot_ts))):
+        raise AssertionError("the converter's canonical rows differ from K3's on the same tables")
+    rows = BM_N * U
+    b, by = bound_ms(rows * 4 * (3 * Mb + 3 * Mb + 1))
+    canon = dict(W=Mb, rows=rows, max_abs_err=max_abs_err(got, ref),
+                 ms=cuda_time_ms(lambda: kernels.sort_slots(side, Mb)),
+                 plain_ms=cuda_time_ms(lambda: kernels.sort_slots_plain(side, Mb), reps=3, warmup=1),
+                 bound_ms=b, bound_by=by)
+    del got, ref, side
+    levels, err = [], 0
+    n = BM_N
+    fold_ms = 0.0
+    while n > 1:
+        half = n // 2
+        lhs = bm._tree_map(lambda x: x[:half], batch)
+        rhs = bm._tree_map(lambda x: x[half:2 * half], batch)
+        rmv = torch.maximum(lhs.rmv_vc, rhs.rmv_vc)
+        sides = [(lhs.slot_score, lhs.slot_dc, lhs.slot_ts), (rhs.slot_score, rhs.slot_dc, rhs.slot_ts)]
+        rows = half * U
+        got = kernels.sort_slots(sides, Mb, rmv_vc=rmv)
+        ref = kernels.sort_slots_plain(sides, Mb, rmv)
+        sync()
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"K3 wide disagrees with its plain version at fold level n={n}")
+        err = max(err, max_abs_err(got, ref))
+        del got, ref
+        b, by = bound_ms(rows * 4 * (2 * 3 * Mb + D + 3 * Mb + 1))
+        lv = dict(n=n, rows=rows, W=2 * Mb, ms=cuda_time_ms(lambda: kernels.sort_slots(sides, Mb, rmv_vc=rmv)),
+                  bound_ms=b, bound_by=by)
+        if n == BM_N:
+            lv["plain_ms"] = cuda_time_ms(lambda: kernels.sort_slots_plain(sides, Mb, rmv), reps=3, warmup=1)
+            lv["device_ms"] = device_ms(torch, lambda: kernels.sort_slots(sides, Mb, rmv_vc=rmv),
+                                        "sort_slots_wide_kernel", reps=5)
+        sync()
+        t0 = time.perf_counter()
+        batch = dense.merge(lhs, rhs)
+        sync()
+        lv["merge_ms"] = (time.perf_counter() - t0) * 1e3
+        fold_ms += lv["merge_ms"]
+        levels.append(lv)
+        n = half
+    t0 = time.perf_counter()
+    again = bm.topk_rmv_from_dense(batch, ids, dcs, K)
+    extract_s = time.perf_counter() - t0
+    if again != merged:
+        raise AssertionError("the staged batch_merge disagrees with the entry point")
+    live = sum(map(len, merged.masked.values()))
+    log("batch_merge topk_rmv", card=card, states=BM_N, ids=U, dcs=D, M=Mb, K=K, build_s=build_s,
+        call_s=call_s, merges_per_s=BM_N * U / call_s, convert_s=convert_s, fold_ms=fold_ms,
+        extract_s=extract_s, set_join_s=join_s, batch_gb=batch_gb,
+        live_adds=live, removals=len(merged.removals), observed=len(merged.observed), launches=launches,
+        canonicalise=canon, levels=levels)
+
+    # The other types, reduced, at their BASELINE.json replica counts.
+    others = {}
+    for name, n_rep in BM_OTHERS.items():
+        kw = {"topk": dict(n_ops=4000, n_ids=10_000), "leaderboard": dict(n_ops=600, n_ids=100_000)}.get(name, {})
+        sts = ss.seeded_states(name, n_rep, seed=21, size=K, **kw)
+        t0 = time.perf_counter()
+        on_card = batch_merge(name, sts, device=dev)
+        sync()
+        card_s = time.perf_counter() - t0
+        if on_card != batch_merge(name, sts, device="cpu"):
+            raise AssertionError(f"batch_merge({name!r}) differs between the card and the CPU")
+        others[name] = dict(replicas=n_rep, s=card_s)
+    log("batch_merge others", **others)
+    first = levels[0]
+    row = dict(max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+               bound_by=first["bound_by"], library_ms=None)
+    return launches, row, canon["max_abs_err"]
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -403,6 +560,10 @@ def main() -> int:
     log("device times", **{label: device_ms(torch, fn, kernel) for label, fn, kernel in device_jobs})
     del device_jobs
     phase_identity(torch)
+    bm_launches, rows["sort_slots_wide"], canon_err = phase_batch_merge(torch, card)
+    launches["sort_slots_wide"] = bm_launches["sort_slots_wide"]
+    # K3's register path is held at W = 8 (phase 3) and W = M (phase 7).
+    rows["sort_slots"]["max_abs_err"] = max(rows["sort_slots"]["max_abs_err"], canon_err)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -412,6 +573,8 @@ def main() -> int:
                         "antidote_ccrdt_tpu/ops/delta_place.py:136"),
         "sort_slots": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
                        "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+        "sort_slots_wide": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                            "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
     }
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rows[name])

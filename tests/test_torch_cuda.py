@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from antidote_ccrdt_tpu_torch import convert, registry
+from antidote_ccrdt_tpu_torch import batch_merge, convert, registry
 from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
 from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+from antidote_ccrdt_tpu_torch.harness.scalar_states import seeded_states
+from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvDenseState
 from antidote_ccrdt_tpu_torch.ops import kernels
 from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place, delta_place_plain
 from antidote_ccrdt_tpu_torch.ops.dense_table import NEG_INF, scatter_max_rows
@@ -211,6 +213,83 @@ def test_k3_kernel_matches_plain_on_card(cuda, w, m, fused):
     assert kernels.sort_slots.launches == n0 + 1
     for g, x in zip(got, kernels.sort_slots_plain(sides, m, rmv_vc)):
         assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [9, 13, 16])
+def test_k3_register_network_on_raw_rows_on_card(cuda, w):
+    # batch_merge's canonicalising call: one side of raw host-order rows,
+    # unfused, at W = M (the 16-input network for 8 < W <= 16).
+    rng = np.random.default_rng(100 + w)
+    side = tuple(map(t, raw_slots(rng, (2, 1, 301, w), 3)))
+    n0 = kernels.sort_slots.launches
+    got = kernels.sort_slots([tuple(x.to(cuda) for x in side)], w)
+    torch.cuda.synchronize()
+    assert kernels.sort_slots.launches == n0 + 1
+    for g, x in zip(got, kernels.sort_slots_plain([side], w)):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("two_sides", [False, True])
+@pytest.mark.parametrize("w", [17, 24, 40, 256, 300, kernels.WIDE_MAX_SLOTS])
+def test_k3_wide_kernel_matches_plain_on_card(cuda, w, two_sides, fused):
+    # W > MAX_SLOTS: the warp path (P <= 256) and the block path (P = 512,
+    # and the shared-memory maximum); raw candidates with many exact
+    # duplicates, INT32_MIN / NEG_INF scores and dcs outside [0, D).
+    rng = np.random.default_rng(w + 2 * two_sides + fused)
+    D = 3
+    lead = (2, 3, 37) if w <= 300 else (2, 3)
+    k = w // 2 if two_sides else w
+    sides = [tuple(map(t, raw_slots(rng, lead + (k,), D)))]
+    if two_sides:
+        sides.append(tuple(map(t, raw_slots(rng, lead + (w - k,), D))))
+    rmv_vc = t(rng.integers(0, 4, lead + (D,)).astype(np.int32)) if fused else None
+    m = w - w // 3
+    n0, w0 = kernels.sort_slots.launches, kernels.sort_slots.wide_launches
+    got = kernels.sort_slots(
+        [tuple(x.to(cuda) for x in s) for s in sides], m,
+        rmv_vc=None if rmv_vc is None else rmv_vc.to(cuda),
+    )
+    torch.cuda.synchronize()
+    assert (kernels.sort_slots.launches, kernels.sort_slots.wide_launches) == (n0, w0 + 1)
+    for g, x in zip(got, kernels.sort_slots_plain(sides, m, rmv_vc)):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+def test_k3_wider_than_shared_memory_raises(cuda):
+    w = kernels.WIDE_MAX_SLOTS + 1
+    side = tuple(torch.zeros((1, w), dtype=torch.int32, device=cuda) for _ in range(3))
+    with pytest.raises(ValueError, match=f"W <= {kernels.WIDE_MAX_SLOTS} .* not {w}"):
+        kernels.sort_slots([side], 1)
+
+
+@pytest.mark.cuda
+def test_engine_wide_slots_on_card_matches_cpu(cuda):
+    # slots_per_id=12: apply_ops and merge join at W = 24, the wide path.
+    out = {}
+    for dev in ("cpu", cuda):
+        dense = registry.make_dense("topk_rmv", n_ids=60, n_dcs=4, size=20, slots_per_id=12, device=dev)
+        gen = TopkRmvEffectGen(Workload(4, 60, zipf_a=1.2, score_max=50, seed=3), device=dev)
+        st = dense.init(4, 1)
+        for _ in range(3):
+            st, _ = dense.apply_ops(st, gen.next_batch(300, 20))
+        flipped = TopkRmvDenseState(**{k: v.flip(0) for k, v in vars(st).items()})
+        merged = dense.merge(st, flipped)
+        out[str(dev)] = (convert.to_numpy(st), convert.to_numpy(merged))
+    assert_trees_equal(out["cpu"], out[str(cuda)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["topk_rmv", "topk", "leaderboard", "wordcount", "average"])
+def test_batch_merge_on_card_matches_cpu(cuda, name):
+    states = seeded_states(name, n_states=6, seed=5)
+    n0 = kernels.sort_slots.wide_launches
+    assert batch_merge(name, states, device=cuda) == batch_merge(name, states, device="cpu")
+    if name == "topk_rmv":
+        assert kernels.sort_slots.wide_launches > n0
 
 
 @pytest.mark.cuda

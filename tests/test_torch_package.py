@@ -18,9 +18,10 @@ REPO = Path(__file__).resolve().parent.parent
 def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
-        "import antidote_ccrdt_tpu_torch\n"
-        "import antidote_ccrdt_tpu_torch.convert, antidote_ccrdt_tpu_torch.harness.dense_replay\n"
-        "import antidote_ccrdt_tpu_torch.harness.opgen, antidote_ccrdt_tpu_torch.utils.benchtime\n"
+        "import importlib, pkgutil\n"
+        "import antidote_ccrdt_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'antidote_ccrdt_tpu' or m.startswith('antidote_ccrdt_tpu.')]\n"
         "print(bad)\n"

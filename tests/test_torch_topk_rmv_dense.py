@@ -34,7 +34,7 @@ ENGINES = {
         jmod.make_dense(n_ids=I, n_dcs=D, size=K, slots_per_id=m),
         registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=m, device="cpu"),
     )
-    for m in (4, 2)
+    for m in (4, 2, 12)
 }
 OPS_FIELDS = [f.name for f in dataclasses.fields(pmod.TopkRmvOps)]
 
@@ -124,6 +124,25 @@ def test_multi_round_apply_matches_jax(mode, promotions):
     je, pe = ENGINES[4]
     assert_same(pe.observe(ps), je.observe(js), "observe")
     assert pe.value(ps) == je.value(js)
+
+
+def test_wide_slots_apply_and_merge_match_jax():
+    """slots_per_id=12: every join runs at W = 2M = 24, past the width of
+    K3's register network; on a card the wide path takes it (the CPU pin of
+    the W > 16 fault, which raised at the first merge)."""
+    je, pe = ENGINES[12]
+    rng = np.random.default_rng(12)
+    crowd = []
+    for _ in range(3):
+        ops = random_ops(rng)
+        ops["add_id"] = np.where(rng.random((R, B)) < 0.8, 1, ops["add_id"]).astype(np.int32)
+        ops["add_ts"] = np.where(ops["add_ts"] > 0, rng.integers(1, 10**6, (R, B)), ops["add_ts"]).astype(np.int32)
+        crowd.append(ops)
+    a_p, a_j = run_both(12, crowd[:2], collect_dominated="table")
+    b_p, b_j = run_both(12, crowd[2:], collect_dominated=True, collect_promotions=True)
+    assert int((a_p.slot_ts > 0).sum(-1).max()) > 8  # more than half the slots live
+    assert_same(pe.merge(a_p, b_p), je.merge(a_j, b_j), "merge")
+    assert_same(pe.observe(pe.merge(b_p, a_p)), je.observe(je.merge(b_j, a_j)), "observe")
 
 
 @pytest.mark.parametrize("seed", range(3))
