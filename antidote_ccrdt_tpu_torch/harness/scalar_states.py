@@ -140,6 +140,29 @@ def topk_rmv_set_join(states: Sequence[Any]):
     return TopkRmvState(observed, masked, removals, vc, mn, size)
 
 
+def topk_rmv_capacity_states(m: int, n: int = 4, size: int = 4, n_ids: int = 6):
+    """n topk_rmv states over ids 0..n_ids-1 whose union holds exactly m
+    live adds of id 0 (the k-th on state k % n, every third also on the
+    next state) and fewer of every other id; the last id carries
+    tombstones. So ``batch_merge`` sizes its capacity M = m: the
+    converter's K3 call runs at W = m and the fold's joins at W = 2m.
+    Draws from seed m."""
+    from ..models.topk_rmv import TopkRmvState
+
+    rng = np.random.default_rng(m)
+    adds = {w: [(int(rng.integers(1, 100)), w, (int(rng.integers(0, n)), k + 1))
+                for k in range(m if w == 0 else int(rng.integers(1, m)))] for w in range(n_ids)}
+    last = n_ids - 1
+    states = []
+    for r in range(n):
+        masked = {w: frozenset(e for k, e in enumerate(es) if k % n == r or (k % 3 == 0 and (k + 1) % n == r))
+                  for w, es in adds.items()}
+        masked = {w: es for w, es in masked.items() if es}
+        observed, mn = top_observed(masked, size)
+        states.append(TopkRmvState(observed, masked, {last: {r: 2, (r + 1) % n: 1}}, {r: m + 1}, mn, size))
+    return states
+
+
 # -- the other types -----------------------------------------------------------
 
 

@@ -198,8 +198,8 @@ class TopkRmvDense:
     Static config: I = element-id space per instance, M = live-add capacity
     per id, D = number of DCs, K = observable top-K size. ``device``: where
     `init` puts states (default: the CUDA card; raises without one). On a
-    card the slot join's kernel takes 2M <= ``ops.kernels.WIDE_MAX_SLOTS``
-    candidates, so M <= 4096.
+    card the slot join's kernel takes 2M <= ``ops.kernels.GLOBAL_MAX_SLOTS``
+    candidates.
     """
 
     type_name = "topk_rmv"

@@ -1,8 +1,8 @@
 """Wrappers of the hand-written CUDA kernels K1 (``scatter_max_rows_``, in
 place), K1c (``scatter_max_rows_copy``, out of place: the main path's
-tombstone update) and K3 (``sort_slots``: a register network for rows of
-up to 16 candidates, the wide shared-memory path above), with their plain
-PyTorch versions.
+tombstone update) and K3 (``sort_slots``: a thread a row up to 8
+candidates, a warp a row up to 256, a block a row above), with their
+plain PyTorch versions.
 
 A wrapper checks device, dtype, shape and contiguity and raises on what it
 does not take. For CUDA tensors it launches its kernel (built from
@@ -28,8 +28,10 @@ from .dense_table import NEG_INF
 I32 = torch.int32
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-MAX_SLOTS = 16  # the widest row K3's register network takes
+MAX_SLOTS = 16  # the widest row counted in ``sort_slots.launches``
 WIDE_MAX_SLOTS = 8192  # the widest row whose candidates fit one block's shared memory
+GLOBAL_MAX_SLOTS = 1 << 30  # the widest row K3's int32 in-row indices address
+GLOBAL_SCRATCH_BYTES = 1 << 28  # device scratch of one chunk of rows wider than WIDE_MAX_SLOTS
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -188,10 +190,13 @@ def sort_slots(
     `sides` is one or two (score, dc, ts) triples of i32[..., w] with
     the same leading shape; the row's candidates are side a's w_a
     followed by side b's w_b (W = w_a + w_b). On a card, rows of W <=
-    MAX_SLOTS go through the register network (``launches``), wider rows
-    up to WIDE_MAX_SLOTS through the shared-memory path
-    (``wide_launches``), and a wider row raises; the plain version takes
-    any W. With `rmv_vc` i32[..., D] the add-wins filter ``ts >
+    MAX_SLOTS count in ``launches`` (a thread a row up to 8, a half-warp
+    up to 16), wider rows up to WIDE_MAX_SLOTS in ``wide_launches`` (a
+    warp a row up to 256, a block above, the row in shared memory), and
+    wider rows up to GLOBAL_MAX_SLOTS in ``global_launches`` (a block a
+    row, the row in a device scratch of at most GLOBAL_SCRATCH_BYTES per
+    chunk of rows); the plain version takes any W. With `rmv_vc`
+    i32[..., D] the add-wins filter ``ts >
     dom_lookup(dc, rmv_vc)`` runs first and filtered candidates rank
     after every live one: for two sides that each keep the slot
     invariant this is the union join (``_join_slots_union``); without
@@ -208,11 +213,8 @@ def sort_slots(
         _check("rmv_vc", rmv_vc, I32, lead + (rmv_vc.shape[-1],))
     if not kernel_device(*flat, rmv_vc):
         return sort_slots_plain(sides, m_keep, rmv_vc)
-    if W > WIDE_MAX_SLOTS:
-        raise ValueError(
-            f"the CUDA kernel takes W <= {WIDE_MAX_SLOTS} candidates per row "
-            f"(one block's shared memory), not {W}"
-        )
+    if W > GLOBAL_MAX_SLOTS:
+        raise ValueError(f"the CUDA kernel takes W <= {GLOBAL_MAX_SLOTS} candidates per row, not {W}")
     dev = flat[0].device
     o_s = torch.empty(lead + (m_keep,), dtype=I32, device=dev)
     o_d = torch.empty_like(o_s)
@@ -224,33 +226,42 @@ def sort_slots(
     a = sides[0]
     b = sides[1] if len(sides) == 2 else (None, None, None)
     wb = widths[1] if len(sides) == 2 else 0
-    symbol = "sort_slots" if W <= MAX_SLOTS else "sort_slots_wide"
-    fn = _build.load("sort_slots", _K3_ARGS, symbol)
     D = rmv_vc.shape[-1] if rmv_vc is not None else 0
-    rc = fn(
+    args = [
         _ptr(a[0]), _ptr(a[1]), _ptr(a[2]), widths[0],
         _ptr(b[0]), _ptr(b[1]), _ptr(b[2]), wb,
         _ptr(rmv_vc), D,
         _ptr(o_s), _ptr(o_d), _ptr(o_t), _ptr(n_live),
-        N, m_keep, ctypes.c_void_p(cuda_stream_handle(o_s)),
-    )
-    _build.check(rc, symbol)
-    if W <= MAX_SLOTS:
-        sort_slots.launches += 1
+        N, m_keep,
+    ]
+    stream = ctypes.c_void_p(cuda_stream_handle(o_s))
+    if W <= WIDE_MAX_SLOTS:
+        symbol, counter = ("sort_slots", "launches") if W <= MAX_SLOTS else ("sort_slots_wide", "wide_launches")
+        rc = _build.load("sort_slots", _K3_ARGS + [ctypes.c_void_p], symbol)(*args, stream)
     else:
-        sort_slots.wide_launches += 1
+        # One row of P = next_pow2(W) 16-byte slots per block; rows in
+        # chunks whose scratch stays within GLOBAL_SCRATCH_BYTES.
+        symbol, counter = "sort_slots_global", "global_launches"
+        row_bytes = 16 << (W - 1).bit_length()
+        chunk = max(1, min(N, GLOBAL_SCRATCH_BYTES // row_bytes))
+        scratch = torch.empty(chunk * row_bytes, dtype=torch.uint8, device=dev)
+        fn = _build.load("sort_slots", _K3_ARGS + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p], symbol)
+        rc = fn(*args, _ptr(scratch), chunk, stream)
+    _build.check(rc, symbol)
+    setattr(sort_slots, counter, getattr(sort_slots, counter) + 1)
     return o_s, o_d, o_t, n_live
 
 
 sort_slots.launches = 0
 sort_slots.wide_launches = 0
+sort_slots.global_launches = 0
 _K3_ARGS = (
     [ctypes.c_void_p] * 3 + [ctypes.c_int]  # side a, w_a
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # side b, w_b
     + [ctypes.c_void_p, ctypes.c_int]  # rmv_vc, D
     + [ctypes.c_void_p] * 4  # outputs
-    + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]  # N, m_keep, stream
-)
+    + [ctypes.c_int64, ctypes.c_int]  # N, m_keep
+)  # then the stream; sort_slots_global takes scratch and chunk rows before it
 
 
 def _slot_order(live, s, t, d):

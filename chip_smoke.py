@@ -28,13 +28,20 @@ Phases, each printing one line (any failure exits non-zero):
    scalar states (one DC each, 8 192 adds and 512 removals per state over
    100 000 ids, K = 100), built from seeded draws (and checked against
    the scalar ``update`` at a reduced size), held against an independent
-   host set join; the converter's canonicalising K3 call (W = M, the
-   register network) and every fold level's K3 join (W = 2M > 16, the wide
-   path) held against their plain versions on their full inputs and timed
-   against their byte bounds; host convert, fold and extract times; a reduced
-   ``batch_merge`` of each other type at its BASELINE.json replica count
-   equal on the card and the CPU; the wide path must have launched;
-8. the kernels line, then the ok line.
+   host set join; the converter's canonicalising K3 call (W = M <= 16, a
+   half-warp a row) and every fold level's K3 join (W = 2M > 16, a warp a
+   row) held against their plain versions on their full inputs and timed
+   (CUDA events and device-only) beside their times before the warp
+   kernel's redesign, their byte bounds and their data-dependent bounds;
+   host convert, fold and extract times; a reduced ``batch_merge`` of each
+   other type at its BASELINE.json replica count equal on the card and the
+   CPU; both K3 paths must have launched;
+8. wide rows: ``batch_merge("topk_rmv", states)`` whose capacity M = 8 400
+   (> 8 192, so the converter's call at W = M and the fold's at W = 2M take
+   K3's global-scratch path) against the host set join, and that path held
+   against its plain version on the converter's and the first fold level's
+   inputs;
+9. the kernels line, then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -51,6 +58,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+SECTOR_BYTES = 32  # the device memory's access granule
 INT32_OPS_PER_S = 67e12  # H100 SXM scalar 32-bit rate (the fp32 non-tensor peak)
 
 # The main path's shapes (bench.py main(): R=32, I=100 000, B=32 768,
@@ -63,6 +71,12 @@ ROUNDS, SYNC_EVERY = 8, 4
 BM_N, BM_IDS, BM_ADDS, BM_RMVS = 32, 100_000, 8_192, 512
 # The other types at their BASELINE.json replica counts, reduced in ops.
 BM_OTHERS = {"topk": 8, "leaderboard": 16, "wordcount": 64, "worddocumentcount": 64, "average": 2}
+# K3's times on those calls before the warp kernel's redesign, as PERF.md
+# records them (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): the
+# converter's call at W = 13, then the fold's levels at W = 26.
+EARLIER_K3_MS = {"convert": 1.492, "levels": [2.27, 1.15, 0.59, 0.30, 0.16]}
+# Capacity of the wide-row check: past K3's shared-memory rows (8 192).
+WIDE_M = 8_400
 
 
 def log(phase: str, **kw) -> None:
@@ -74,6 +88,18 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def rmv_sector_bytes(torch, sides, rmv_vc) -> int:
+    """Bytes of the distinct 32-byte `rmv_vc` sectors that K3 must read:
+    those of the candidates with ts > 0 and a dc in [0, D) (any other
+    candidate dies, or survives, without its tombstone)."""
+    D = rmv_vc.shape[-1]
+    lead = rmv_vc.shape[:-1]
+    row = torch.arange(rmv_vc.numel() // D, device=rmv_vc.device).view(lead + (1,))
+    per = SECTOR_BYTES // rmv_vc.element_size()
+    addr = [((row * D + d.long()) // per)[(t > 0) & (d >= 0) & (d < D)] for _, d, t in sides]
+    return int(torch.unique(torch.cat(addr)).numel()) * SECTOR_BYTES
+
+
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
@@ -82,21 +108,26 @@ def max_abs_err(got, want) -> int:
 def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
     """Mean device time per launch of the CUDA kernel named `kernel` inside
     `fn`, from torch.profiler (launch and host time excluded), over the
-    launches the profiler recorded."""
+    launches the profiler recorded. torch.profiler drops kernel records
+    now and then, at times all of a session's: a session that recorded
+    none is run again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and re.search(rf"\b{kernel}\b", e.key)]
-    us, calls = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time of {kernel}")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and re.search(rf"\b{kernel}\b", e.key)]
+        us, calls = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+        if us > 0:
+            break
+    else:
+        raise AssertionError(f"the profiler saw no device time of {kernel} in three sessions")
     if calls != reps:
         print(f"[device times] note: the profiler recorded {calls} of {reps} launches of {kernel}", flush=True)
     return us / 1e3 / calls
@@ -121,12 +152,12 @@ def phase_build():
     secs = time.perf_counter() - t0
     regs = {}
     for name in _build.SOURCES:
-        out = _build.BUILD_LOG.get(name, "")
-        regs[name] = [
-            f"{fn}: {m.group(0)}"
-            for fn, m in zip(re.findall(r"Compiling entry function '(\w+)'", out),
-                             re.finditer(r"Used \d+ registers[^\n]*", out))
-        ] + re.findall(r"\d+ bytes spill stores, \d+ bytes spill loads", out)
+        # One entry per kernel: its registers and its spills.
+        regs[name] = {
+            re.search(r"'(\w+)'", part).group(1): " ".join(
+                re.findall(r"Used \d+ registers|\d+ bytes spill \w+", part))
+            for part in _build.BUILD_LOG.get(name, "").split("Compiling entry function")[1:]
+        }
     log("build", seconds=round(secs, 2), ptxas=regs)
 
 
@@ -269,6 +300,8 @@ def phase_kernels(torch):
             raise AssertionError(f"K3 sort_slots (fused={fused}) disagrees with its plain version")
         n_bytes = 6 * n * M * 4 + 3 * n * M * 4 + n * 4 + (n * D * 4 if fused else 0)
         b, by = bound_ms(n_bytes, n * (2 * 19 * 12 + 8 * 6))
+        # The bound with only the tombstone sectors the live candidates need.
+        data_bound = bound_ms(n_bytes - n * D * 4 + rmv_sector_bytes(torch, sides, rmv_vc), 0)[0] if fused else b
         entry = dict(
             max_abs_err=max_abs_err(got, want),
             ms=cuda_time_ms(lambda: kernels.sort_slots(sides, M, rmv_vc=vc)),
@@ -276,7 +309,7 @@ def phase_kernels(torch):
             bound_ms=b, bound_by=by,
             library_ms=cuda_time_ms(lambda: torch.sort(packed, dim=-1, descending=True)),
         )
-        log(f"kernel K3 fused={fused}", live=int((got[2] > 0).sum()), **entry)
+        log(f"kernel K3 fused={fused}", live=int((got[2] > 0).sum()), data_bound_ms=data_bound, **entry)
         device_jobs.append((f"K3 fused={fused}", lambda vc=vc: kernels.sort_slots(sides, M, rmv_vc=vc),
                             "sort_slots_kernel"))
         if fused:
@@ -433,16 +466,18 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
     for w in wrappers:
         w.launches = 0
     kernels.sort_slots.wide_launches = 0
+    kernels.sort_slots.global_launches = 0
     sync()
     t0 = time.perf_counter()
     merged = batch_merge("topk_rmv", states, device=dev)
     sync()
     call_s = time.perf_counter() - t0
     launches = {"sort_slots": kernels.sort_slots.launches, "sort_slots_wide": kernels.sort_slots.wide_launches,
+                "sort_slots_global": kernels.sort_slots.global_launches,
                 "scatter_max_rows": kernels.scatter_max_rows_.launches,
                 "scatter_max_rows_copy": kernels.scatter_max_rows_copy.launches, "delta_place": delta_place.launches}
-    if launches["sort_slots_wide"] < 1:
-        raise AssertionError(f"batch_merge did not launch K3's wide path: {launches}")
+    if launches["sort_slots_wide"] < 1 or launches["sort_slots"] < 1:
+        raise AssertionError(f"batch_merge did not launch both of K3's paths (W = M, W = 2M): {launches}")
     t0 = time.perf_counter()
     want = ss.topk_rmv_set_join(states)
     join_s = time.perf_counter() - t0
@@ -450,9 +485,9 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
         raise AssertionError("batch_merge disagrees with the host set join")
 
     # The same call in its three stages, each timed. The converter's
-    # canonicalising K3 call (W = M, the register network) and each fold
-    # level's K3 join (W = 2M, the wide path) are held against their plain
-    # versions on their full inputs, and timed alone.
+    # canonicalising K3 call (W = M) and each fold level's K3 join (W = 2M)
+    # are held against their plain versions on their full inputs, and timed
+    # alone, by CUDA events and device-only.
     sync()
     t0 = time.perf_counter()
     dense, batch, ids, dcs = bm.topk_rmv_to_dense(states, dev)
@@ -460,8 +495,8 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
     convert_s = time.perf_counter() - t0
     batch_gb = bm.tree_nbytes(batch) / 1e9
     Mb, U, D = dense.M, len(ids), len(dcs)
-    if Mb <= 8:
-        raise AssertionError(f"M = {Mb}: the fold's joins would not reach the wide path")
+    if not 8 < Mb <= 16:
+        raise AssertionError(f"M = {Mb}: the converter's call would not take K3's half-warp path")
     raw = bm.topk_rmv_tables(states, dev)[0]
     side = [(raw.slot_score, raw.slot_dc, raw.slot_ts)]
     del raw
@@ -475,7 +510,11 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
     rows = BM_N * U
     b, by = bound_ms(rows * 4 * (3 * Mb + 3 * Mb + 1))
     canon = dict(W=Mb, rows=rows, max_abs_err=max_abs_err(got, ref),
+                 # The rows K3 sorts; the others (absent ids) are the fill.
+                 sorted_share=float((side[0][2] > 0).any(-1).float().mean()),
                  ms=cuda_time_ms(lambda: kernels.sort_slots(side, Mb)),
+                 device_ms=device_ms(torch, lambda: kernels.sort_slots(side, Mb), "sort_slots_warp_kernel", reps=5),
+                 earlier_ms=EARLIER_K3_MS["convert"],
                  plain_ms=cuda_time_ms(lambda: kernels.sort_slots_plain(side, Mb), reps=3, warmup=1),
                  bound_ms=b, bound_by=by)
     del got, ref, side
@@ -496,13 +535,20 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
             raise AssertionError(f"K3 wide disagrees with its plain version at fold level n={n}")
         err = max(err, max_abs_err(got, ref))
         del got, ref
-        b, by = bound_ms(rows * 4 * (2 * 3 * Mb + D + 3 * Mb + 1))
-        lv = dict(n=n, rows=rows, W=2 * Mb, ms=cuda_time_ms(lambda: kernels.sort_slots(sides, Mb, rmv_vc=rmv)),
-                  bound_ms=b, bound_by=by)
+        slot_bytes = rows * 4 * (2 * 3 * Mb + 3 * Mb + 1)
+        b, by = bound_ms(slot_bytes + rows * D * 4)
+        k = len(levels)
+        lv = dict(n=n, rows=rows, W=2 * Mb,
+                  # The rows K3 sorts: those with a candidate of ts > 0.
+                  sorted_share=float(((lhs.slot_ts > 0).any(-1) | (rhs.slot_ts > 0).any(-1)).float().mean()),
+                  ms=cuda_time_ms(lambda: kernels.sort_slots(sides, Mb, rmv_vc=rmv)),
+                  device_ms=device_ms(torch, lambda: kernels.sort_slots(sides, Mb, rmv_vc=rmv),
+                                      "sort_slots_warp_kernel", reps=5),
+                  earlier_ms=EARLIER_K3_MS["levels"][k] if k < len(EARLIER_K3_MS["levels"]) else None,
+                  bound_ms=b, bound_by=by,
+                  data_bound_ms=bound_ms(slot_bytes + rmv_sector_bytes(torch, sides, rmv))[0])
         if n == BM_N:
             lv["plain_ms"] = cuda_time_ms(lambda: kernels.sort_slots_plain(sides, Mb, rmv), reps=3, warmup=1)
-            lv["device_ms"] = device_ms(torch, lambda: kernels.sort_slots(sides, Mb, rmv_vc=rmv),
-                                        "sort_slots_wide_kernel", reps=5)
         sync()
         t0 = time.perf_counter()
         batch = dense.merge(lhs, rhs)
@@ -537,9 +583,70 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
         others[name] = dict(replicas=n_rep, s=card_s)
     log("batch_merge others", **others)
     first = levels[0]
-    row = dict(max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
-               bound_by=first["bound_by"], library_ms=None)
-    return launches, row, canon["max_abs_err"]
+    wide = dict(max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None)
+    narrow = {k: canon[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return launches, wide, dict(narrow, library_ms=None)
+
+
+def phase_wide_rows(torch, card: str, dev: str = "cuda"):
+    """batch_merge at a capacity past K3's shared-memory rows, and K3's
+    global-scratch path against its plain version on that call's inputs."""
+    from antidote_ccrdt_tpu_torch import batch_merge
+    from antidote_ccrdt_tpu_torch.core import batch_merge as bm
+    from antidote_ccrdt_tpu_torch.harness import scalar_states as ss
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms, sync
+
+    states = ss.topk_rmv_capacity_states(WIDE_M)
+    counters = ("launches", "wide_launches", "global_launches")
+    for c in counters:
+        setattr(kernels.sort_slots, c, 0)
+    sync()
+    t0 = time.perf_counter()
+    merged = batch_merge("topk_rmv", states, device=dev)
+    sync()
+    call_s = time.perf_counter() - t0
+    launches = {c: getattr(kernels.sort_slots, c) for c in counters}
+    if launches["global_launches"] < 2:
+        raise AssertionError(f"batch_merge at M = {WIDE_M} did not take K3's global path twice: {launches}")
+    if merged != ss.topk_rmv_set_join(states):
+        raise AssertionError(f"batch_merge at M = {WIDE_M} disagrees with the host set join")
+
+    raw = bm.topk_rmv_tables(states, dev)[0]
+    Mb = raw.slot_ts.shape[-1]
+    dense, batch, ids, _ = bm.topk_rmv_to_dense(states, dev)
+    half = batch.slot_ts.shape[0] // 2
+    lhs = bm._tree_map(lambda x: x[:half], batch)
+    rhs = bm._tree_map(lambda x: x[half:2 * half], batch)
+    rmv = torch.maximum(lhs.rmv_vc, rhs.rmv_vc)
+    D = rmv.shape[-1]
+    calls = {
+        "convert": ([(raw.slot_score, raw.slot_dc, raw.slot_ts)], None, raw.slot_ts.numel() // Mb, Mb),
+        "fold": ([(lhs.slot_score, lhs.slot_dc, lhs.slot_ts), (rhs.slot_score, rhs.slot_dc, rhs.slot_ts)],
+                 rmv, rmv.numel() // D, 2 * Mb),
+    }
+    out = {}
+    for label, (sides, vc, rows, W) in calls.items():
+        got = kernels.sort_slots(sides, Mb, rmv_vc=vc)
+        ref = kernels.sort_slots_plain(sides, Mb, vc)
+        sync()
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"K3's global path ({label}, W = {W}) disagrees with its plain version")
+        # Bytes, or the bitonic network's compare-exchanges (about 12
+        # integer operations each) over the row padded to P = 2^k.
+        lg = (W - 1).bit_length()
+        b, by = bound_ms(rows * 4 * (3 * W + (D if vc is not None else 0) + 3 * Mb + 1),
+                         rows * (1 << (lg - 1)) * lg * (lg + 1) // 2 * 12)
+        out[label] = dict(W=W, rows=rows, max_abs_err=max_abs_err(got, ref),
+                          ms=cuda_time_ms(lambda: kernels.sort_slots(sides, Mb, rmv_vc=vc), reps=5, warmup=1),
+                          plain_ms=cuda_time_ms(lambda: kernels.sort_slots_plain(sides, Mb, vc), reps=3, warmup=1),
+                          bound_ms=b, bound_by=by)
+    log("wide rows", card=card, M=Mb, states=len(states), ids=len(ids), call_s=call_s, launches=launches, **out)
+    fold = out["fold"]
+    row = dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), ms=fold["ms"], plain_ms=fold["plain_ms"],
+               bound_ms=fold["bound_ms"], bound_by=fold["bound_by"], library_ms=None)
+    return launches["global_launches"], row
 
 
 def main() -> int:
@@ -560,10 +667,10 @@ def main() -> int:
     log("device times", **{label: device_ms(torch, fn, kernel) for label, fn, kernel in device_jobs})
     del device_jobs
     phase_identity(torch)
-    bm_launches, rows["sort_slots_wide"], canon_err = phase_batch_merge(torch, card)
+    bm_launches, rows["sort_slots_wide"], rows["sort_slots_9_16"] = phase_batch_merge(torch, card)
     launches["sort_slots_wide"] = bm_launches["sort_slots_wide"]
-    # K3's register path is held at W = 8 (phase 3) and W = M (phase 7).
-    rows["sort_slots"]["max_abs_err"] = max(rows["sort_slots"]["max_abs_err"], canon_err)
+    launches["sort_slots_9_16"] = bm_launches["sort_slots"]  # the converter's call, W = M = 13
+    launches["sort_slots_global"], rows["sort_slots_global"] = phase_wide_rows(torch, card)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -573,8 +680,12 @@ def main() -> int:
                         "antidote_ccrdt_tpu/ops/delta_place.py:136"),
         "sort_slots": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
                        "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+        "sort_slots_9_16": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                            "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
         "sort_slots_wide": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
                             "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+        "sort_slots_global": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
     }
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rows[name])

@@ -2,8 +2,8 @@
 names: the scenarios of tests/test_batch_merge.py (partial states built
 through the real downstream/update pipeline), mixed live, framework-blob
 and reference-ETF inputs, a single state, the empty and size-mismatch
-rejections, and topk_rmv at capacities M of 4, 9 and 20 (the fold's joins
-at W = 2M). The port runs with ``device="cpu"`` (every kernel's plain
+rejections, and topk_rmv at capacities M of 4, 9, 20 and 8400 (the fold's
+joins at W = 2M). The port runs with ``device="cpu"`` (every kernel's plain
 version); both packages must return `==` states, and the same
 `to_binary` bytes.
 
@@ -103,35 +103,20 @@ def test_topk_rmv():
     assert merged == ss.topk_rmv_set_join(parts)
 
 
-def capacity_states(m, n=4, size=4):
-    """n topk_rmv states over ids 0..5 whose union holds exactly m live
-    adds of id 0 (the k-th on state k % n, every third also on the next
-    state) and fewer of every other id; id 5 carries tombstones."""
-    from antidote_ccrdt_tpu_torch.models.topk_rmv import TopkRmvState
-
-    rng = np.random.default_rng(m)
-    adds = {w: [(int(rng.integers(1, 100)), w, (int(rng.integers(0, n)), k + 1))
-                for k in range(m if w == 0 else int(rng.integers(1, m)))] for w in range(6)}
-    states = []
-    for r in range(n):
-        masked = {w: frozenset(e for k, e in enumerate(es) if k % n == r or (k % 3 == 0 and (k + 1) % n == r))
-                  for w, es in adds.items()}
-        masked = {w: es for w, es in masked.items() if es}
-        observed, mn = ss.top_observed(masked, size)
-        states.append(TopkRmvState(observed, masked, {5: {r: 2, (r + 1) % n: 1}}, {r: m + 1}, mn, size))
-    return states
-
-
-@pytest.mark.parametrize("m", [4, 9, 20])
+@pytest.mark.parametrize("m", [4, 9, 20, 8400])
 def test_topk_rmv_capacity(m):
     """M = the largest union of live adds of one id: the canonicalising
-    K3 call runs at W = M and the fold's joins at W = 2M (past the
-    register network's 16 for M of 9 and 20)."""
-    states = capacity_states(m)
+    K3 call runs at W = M and the fold's joins at W = 2M (past 16 for M of
+    9 and 20; past the 8192 that one block's shared memory holds, the
+    card's global-scratch path, for M = 8400). At M = 8400, two states of
+    two ids: JAX's union join holds [rows, 2M, 2M] compare planes, about
+    1.8 GB a row."""
+    n, ids = (2, 2) if m > 4096 else (4, 6)
+    states = ss.topk_rmv_capacity_states(m, n=n, n_ids=ids)
     merged = both("topk_rmv", states)
     assert merged == ss.topk_rmv_set_join(states)
     dense, batch, _, _ = pbm.topk_rmv_to_dense(states, "cpu")
-    assert dense.M == m and tuple(batch.slot_ts.shape) == (4, 1, 6, m)
+    assert dense.M == m and tuple(batch.slot_ts.shape) == (n, 1, ids, m)
     assert len(merged.masked[0]) == m
 
 

@@ -17,7 +17,7 @@ import torch
 from antidote_ccrdt_tpu_torch import batch_merge, convert, registry
 from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
 from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
-from antidote_ccrdt_tpu_torch.harness.scalar_states import seeded_states
+from antidote_ccrdt_tpu_torch.harness.scalar_states import seeded_states, topk_rmv_capacity_states, topk_rmv_set_join
 from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvDenseState
 from antidote_ccrdt_tpu_torch.ops import kernels
 from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place, delta_place_plain
@@ -219,7 +219,7 @@ def test_k3_kernel_matches_plain_on_card(cuda, w, m, fused):
 @pytest.mark.parametrize("w", [9, 13, 16])
 def test_k3_register_network_on_raw_rows_on_card(cuda, w):
     # batch_merge's canonicalising call: one side of raw host-order rows,
-    # unfused, at W = M (the 16-input network for 8 < W <= 16).
+    # unfused, at W = M (a half-warp a row for 8 < W <= 16).
     rng = np.random.default_rng(100 + w)
     side = tuple(map(t, raw_slots(rng, (2, 1, 301, w), 3)))
     n0 = kernels.sort_slots.launches
@@ -258,12 +258,87 @@ def test_k3_wide_kernel_matches_plain_on_card(cuda, w, two_sides, fused):
         assert torch.equal(g.cpu(), x)
 
 
+def mixed_rows(rng, n, wa, wb, D):
+    """n rows whose kind changes from row to row, so inside one block:
+    canonical sides (the merge path), raw sides (the full sort), rows of
+    the fill (NEG_INF, 0, 0) in every slot, canonical sides where side b
+    repeats side a's first slots (cross-side duplicates), and sorted side
+    a against raw side b. Scores include INT32_MIN and NEG_INF, dcs lie
+    in [-1, D]."""
+    kind = rng.integers(0, 5, n)
+    canon = [canonical_side(rng, (n, w), D) for w in (wa, wb)]
+    raw = [raw_slots(rng, (n, w), D) for w in (wa, wb)]
+    a = tuple(np.where((kind == 1)[:, None], r, c) for c, r in zip(canon[0], raw[0]))
+    b = tuple(np.where(np.isin(kind, (1, 4))[:, None], r, c) for c, r in zip(canon[1], raw[1]))
+    k = min(wa, wb)
+    for x, y, f in zip(a, b, (NEG_INF, 0, 0)):
+        x[kind == 2], y[kind == 2] = f, f
+        y[kind == 3, :k], y[kind == 3, k:] = x[kind == 3, :k], f
+    return a, b
+
+
 @pytest.mark.cuda
-def test_k3_wider_than_shared_memory_raises(cuda):
-    w = kernels.WIDE_MAX_SLOTS + 1
-    side = tuple(torch.zeros((1, w), dtype=torch.int32, device=cuda) for _ in range(3))
-    with pytest.raises(ValueError, match=f"W <= {kernels.WIDE_MAX_SLOTS} .* not {w}"):
-        kernels.sort_slots([side], 1)
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("two_sides", [False, True])
+@pytest.mark.parametrize("w", [9, 13, 16, 17, 26, 32, 33, 64, 256])
+def test_k3_mixed_rows_match_plain_on_card(cuda, w, two_sides, fused):
+    # The three per-row paths of the warp kernel (no sort, merge, full
+    # sort) side by side in one block; fused, the filter kills some
+    # candidates (rmv_vc in [0, 4), ts in [0, 4)) and every candidate of
+    # the rows whose tombstones are all 2^30.
+    rng = np.random.default_rng(1000 + 4 * w + 2 * two_sides + fused)
+    D, n = 3, 301
+    wa = (w + 1) // 2 if two_sides else w
+    a, b = mixed_rows(rng, n, wa, w - wa, D)
+    sides = [tuple(map(t, a))] + ([tuple(map(t, b))] if two_sides else [])
+    rmv_vc = None
+    if fused:
+        vc = rng.integers(0, 4, (n, D)).astype(np.int32)
+        vc[rng.random(n) < 0.2] = 1 << 30
+        rmv_vc = t(vc)
+    m = wa
+    counter = "launches" if w <= kernels.MAX_SLOTS else "wide_launches"
+    n0 = getattr(kernels.sort_slots, counter)
+    got = kernels.sort_slots([tuple(x.to(cuda) for x in s) for s in sides], m,
+                             rmv_vc=None if rmv_vc is None else rmv_vc.to(cuda))
+    torch.cuda.synchronize()
+    assert getattr(kernels.sort_slots, counter) == n0 + 1
+    for g, x in zip(got, kernels.sort_slots_plain(sides, m, rmv_vc)):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("two_sides", [False, True])
+@pytest.mark.parametrize("w", [kernels.WIDE_MAX_SLOTS + 1, 16_800])
+def test_k3_wider_than_shared_memory_matches_plain_on_card(cuda, w, two_sides, fused):
+    # W > WIDE_MAX_SLOTS: one block a row, the row in a device scratch.
+    rng = np.random.default_rng(w + 2 * two_sides + fused)
+    D, lead = 3, (3,)
+    k = w // 2 if two_sides else w
+    sides = [tuple(map(t, raw_slots(rng, lead + (k,), D)))]
+    if two_sides:
+        sides.append(tuple(map(t, raw_slots(rng, lead + (w - k,), D))))
+    rmv_vc = t(rng.integers(0, 4, lead + (D,)).astype(np.int32)) if fused else None
+    m = w - w // 3
+    counters = ("launches", "wide_launches", "global_launches")
+    before = [getattr(kernels.sort_slots, c) for c in counters]
+    got = kernels.sort_slots([tuple(x.to(cuda) for x in s) for s in sides], m,
+                             rmv_vc=None if rmv_vc is None else rmv_vc.to(cuda))
+    torch.cuda.synchronize()
+    assert [getattr(kernels.sort_slots, c) for c in counters] == [before[0], before[1], before[2] + 1]
+    for g, x in zip(got, kernels.sort_slots_plain(sides, m, rmv_vc)):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+def test_batch_merge_past_shared_memory_on_card(cuda):
+    # M = 8400: the converter's K3 call at W = 8400 and the fold's at
+    # W = 16 800 both take the global-scratch path.
+    states = topk_rmv_capacity_states(8400)
+    n0 = kernels.sort_slots.global_launches
+    assert batch_merge("topk_rmv", states, device=cuda) == topk_rmv_set_join(states)
+    assert kernels.sort_slots.global_launches >= n0 + 3
 
 
 @pytest.mark.cuda
