@@ -99,13 +99,16 @@ class DenseCCRDT(Protocol):
 
 class Registry:
     """Type registry: the rebuild of ``antidote_ccrdt:is_type/1`` and
-    ``generates_extra_operations/1`` (``antidote_ccrdt.erl:61-65``) for the
-    types ported so far."""
+    ``generates_extra_operations/1`` (``antidote_ccrdt.erl:61-65``). Dense
+    engines are built by factories that take ``device=``; the JAX
+    package's import-time engine singletons have no counterpart (an
+    engine built at import would resolve the card at import)."""
 
     def __init__(self) -> None:
         self._scalar: Dict[str, ScalarCCRDT] = {}
         self._dense_factory: Dict[str, Any] = {}
         self._extra_ops: set = set()
+        self._law_fixture: Dict[str, Any] = {}
 
     def register(
         self,
@@ -113,6 +116,7 @@ class Registry:
         scalar: Optional[ScalarCCRDT] = None,
         dense_factory: Optional[Any] = None,
         generates_extra_operations: bool = False,
+        law_fixture: Optional[Any] = None,
     ) -> None:
         if scalar is not None:
             self._scalar[name] = scalar
@@ -120,6 +124,8 @@ class Registry:
             self._dense_factory[name] = dense_factory
         if generates_extra_operations:
             self._extra_ops.add(name)
+        if law_fixture is not None:
+            self._law_fixture[name] = law_fixture
 
     def is_type(self, name: Any) -> bool:
         return isinstance(name, str) and (name in self._scalar or name in self._dense_factory)
@@ -141,6 +147,20 @@ class Registry:
 
     def dense_types(self) -> Iterable[str]:
         return set(self._dense_factory)
+
+    # -- lattice-law audit hooks --------------------------------------------
+    # A law fixture is `fn(seed, n, device=None) -> {"dense": engine,
+    # "states": [A, B, C], "chain": (prev, cur) | None}` generating
+    # REACHABLE batched states (a [1, n] instance grid built from real op
+    # applications) for the merge/delta law checker in ops/laws.py, on
+    # `device` (default: the CUDA card). Types without a fixture are
+    # reported as unaudited.
+
+    def law_fixture(self, name: str) -> Optional[Any]:
+        return self._law_fixture.get(name)
+
+    def law_fixtures(self) -> Dict[str, Any]:
+        return dict(self._law_fixture)
 
 
 registry = Registry()

@@ -28,7 +28,6 @@ string JAX writes for the same structure, so a blob loads on either side.
 
 from __future__ import annotations
 
-import dataclasses
 import io
 import json
 import struct
@@ -175,26 +174,34 @@ def loads_scalar(data: bytes) -> tuple[str, Any]:
 
 
 def _flatten(tree: Any) -> Tuple[List[Any], str]:
-    """(leaves, treedef string) of a state: dataclasses, NamedTuples and
-    tuples of tensors or arrays, nested, with None for an absent leaf. The string is
-    the one ``str(jax.tree_util.tree_flatten(x)[1])`` gives for the JAX
-    package's twin of the same structure."""
+    """(leaves, treedef string) of a state (the nodes `utils.tree.children`
+    walks), with None for an absent leaf. The string is the one
+    ``str(jax.tree_util.tree_flatten(x)[1])`` gives for the JAX package's
+    twin of the same structure."""
+    from ..utils.tree import children, dataclass_fields
+
     leaves: List[Any] = []
 
     def walk(x: Any) -> str:
-        if x is None:
+        kind, kids = children(x)
+        if kind is None:
+            leaves.append(x)
+            return "*"
+        if kind == "none":
             return "None"
-        if dataclasses.is_dataclass(x):
-            kids = [walk(getattr(x, f.name)) for f in dataclasses.fields(x)]
-            return f"CustomNode({type(x).__name__}[()], [{', '.join(kids)}])"
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            kids = [walk(v) for v in x]
-            return f"CustomNode(namedtuple[{type(x).__name__}], [{', '.join(kids)}])"
-        if isinstance(x, tuple):
-            kids = [walk(v) for v in x]
-            return f"({kids[0]},)" if len(kids) == 1 else f"({', '.join(kids)})"
-        leaves.append(x)
-        return "*"
+        subs = [walk(child) for _, child in kids]
+        if kind == "dataclass":
+            # Static fields are treedef metadata, as in
+            # jax.tree_util.register_dataclass: "Name[(False,)]".
+            meta = tuple(getattr(x, k) for k in dataclass_fields(type(x))[1])
+            return f"CustomNode({type(x).__name__}[{meta!r}], [{', '.join(subs)}])"
+        if kind == "namedtuple":
+            return f"CustomNode(namedtuple[{type(x).__name__}], [{', '.join(subs)}])"
+        if kind == "tuple":
+            return f"({subs[0]},)" if len(subs) == 1 else f"({', '.join(subs)})"
+        if kind == "list":
+            return f"[{', '.join(subs)}]"
+        return "{" + ", ".join(f"{k!r}: {s}" for k, s in zip(sorted(x), subs)) + "}"
 
     return leaves, f"PyTreeDef({walk(tree)})"
 
@@ -205,34 +212,23 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
     replaces."""
     import torch
 
+    from ..utils.tree import map_with_path
+
     it = iter(leaves)
 
-    def build(x: Any) -> Any:
-        if x is None:
-            return None
-        if dataclasses.is_dataclass(x):
-            return type(x)(**{f.name: build(getattr(x, f.name)) for f in dataclasses.fields(x)})
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(build(v) for v in x))
-        if isinstance(x, tuple):
-            return tuple(build(v) for v in x)
-        arr = next(it)
+    def build(_path: str, x: Any) -> Any:
         dev = x.device if isinstance(x, torch.Tensor) else "cpu"
-        return torch.from_numpy(arr).to(dev)
+        return torch.from_numpy(next(it)).to(dev)
 
-    return build(like)
-
-
-def _to_numpy(leaf: Any) -> np.ndarray:
-    if hasattr(leaf, "detach"):  # a tensor
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+    return map_with_path(build, like)
 
 
 def dumps_dense(name: str, state: Any) -> bytes:
     """Serialize a state of tensors: npz of leaves + JSON treedef manifest."""
+    from ..utils.tree import as_numpy
+
     leaves, treedef = _flatten(state)
-    arrs = {f"leaf{i}": _to_numpy(x) for i, x in enumerate(leaves)}
+    arrs = {f"leaf{i}": as_numpy(x) for i, x in enumerate(leaves)}
     bio = io.BytesIO()
     np.savez(bio, manifest=np.frombuffer(
         json.dumps({"treedef": treedef, "n": len(leaves)}).encode(), dtype=np.uint8

@@ -7,8 +7,11 @@ Reference: ``src/antidote_ccrdt_average.erl``. State is ``{Sum, N}``
 fresh state divides by zero in the reference (``average.erl:69-70``) — here
 it returns 0.0.
 
-The scalar half of ``antidote_ccrdt_tpu/models/average.py`` (the same
-code, bit for bit in ``to_binary``); the dense engine is not ported yet.
+A port of ``antidote_ccrdt_tpu/models/average.py``: the scalar half is the
+same code (bit for bit in ``to_binary``); the dense half keeps (sum, n)
+accumulators ``[n_replicas, n_keys]``, applies an op batch as one
+scatter-add per leaf, and merges replicas with ``+`` (MONOID algebra:
+per-replica states are deltas — see `MergeKind`).
 """
 
 from __future__ import annotations
@@ -108,3 +111,81 @@ class AverageScalar:
 
 
 registry.register("average", scalar=AverageScalar())
+
+
+# --- dense level -----------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+import torch  # noqa: E402
+
+from ..core.behaviour import MergeKind  # noqa: E402
+from ..device import DeviceLike, resolve_device  # noqa: E402
+from ..ops.dense_table import table_addresses, wrapping_add  # noqa: E402
+
+
+@dataclasses.dataclass
+class AverageState:
+    """sum/n accumulators, shape [n_replicas, n_keys]."""
+
+    sum: torch.Tensor
+    num: torch.Tensor
+
+
+@dataclasses.dataclass
+class AverageOps:
+    """A batch of add ops per replica: op b on replica r targets key[r, b]
+    adding (value[r, b], count[r, b]). count==0 marks padding (the
+    reference's own no-op guard makes 0 the natural null)."""
+
+    key: torch.Tensor  # int32[R, B]
+    value: torch.Tensor  # [R, B], state dtype
+    count: torch.Tensor  # [R, B], state dtype
+
+
+class AverageDense:
+    """Batched average over [n_replicas, n_keys] (port of the JAX
+    ``AverageDense``). `dtype` defaults to int32, as in JAX; integer sums
+    wrap in it. ``device``: where `init` puts states (default: the CUDA
+    card; raises without one)."""
+
+    type_name = "average"
+    merge_kind = MergeKind.MONOID
+
+    def __init__(self, dtype: torch.dtype = torch.int32, device: DeviceLike = None):
+        self.dtype = dtype
+        self.device = resolve_device(device)
+
+    def init(self, n_replicas: int, n_keys: int) -> AverageState:
+        def z():
+            return torch.zeros((n_replicas, n_keys), dtype=self.dtype, device=self.device)
+
+        return AverageState(sum=z(), num=z())
+
+    def apply_ops(self, state: AverageState, ops: AverageOps):
+        """Scatter-add each op's (value, count) into its key, per replica;
+        a key in [-NK, 0) lands on key + NK and one outside [-NK, NK) is
+        dropped (JAX's ``.at[key].add(mode="drop")``). count==0 ops are
+        no-ops end to end (average.erl:89): their value must not leak into
+        the sum either."""
+        R, NK = state.sum.shape
+        value = ops.value.masked_fill(ops.count == 0, 0)
+        flat, keep = table_addresses(
+            (R, 1, NK), torch.zeros_like(ops.key), ops.key, torch.ones_like(ops.key, dtype=torch.bool)
+        )
+        new_sum = wrapping_add(state.sum, flat, value[keep])
+        new_num = wrapping_add(state.num, flat, ops.count[keep])
+        return AverageState(sum=new_sum, num=new_num), None
+
+    def merge(self, a: AverageState, b: AverageState) -> AverageState:
+        return AverageState(sum=a.sum + b.sum, num=a.num + b.num)
+
+    def observe(self, state: AverageState) -> torch.Tensor:
+        """float32 ``sum / max(num, 1)``, and 0.0 where num == 0: both
+        operands rounded to float32 first, as JAX's true division of int32
+        arrays does."""
+        q = state.sum.to(torch.float32) / state.num.clamp_min(1).to(torch.float32)
+        return q.masked_fill(state.num == 0, 0.0)
+
+
+registry.register("average", dense_factory=AverageDense)

@@ -391,6 +391,34 @@ class TopkRmvDense:
 
         return TopkRmvDenseState(f_score, f_dc, f_ts, rmv_vc, vc, lossy), dom_tbl
 
+    def coalesce_ops(
+        self,
+        ops_list,
+        out_adds: Optional[int] = None,
+        out_rmvs: Optional[int] = None,
+    ):
+        """Fuse several op batches into ONE compacted batch (whole-log
+        compaction, `ops.compaction.coalesce_topk_rmv_ops`): removals fuse
+        per id, dominated/duplicate adds are deleted, survivors keep the
+        best M per id — the pre-ship pass standing in for the reference's
+        `can_compact/2`/`compact_ops/2` log walk (antidote_ccrdt.erl:55-56,
+        topk_rmv.erl:178-223). Generic harnesses use it through
+        `DenseReplay.apply_coalesced` and `pipeline.stream_apply(coalesce=k)`.
+
+        Default output windows are the concatenated input sizes (never
+        overflows); smaller windows raise when a replica's live ops do not
+        fit. Runs on the batches' device. Returns (ops, n_add[R], n_rmv[R])."""
+        from ..ops.compaction import coalesce_topk_rmv_ops
+
+        ops_list = list(ops_list)
+        if out_adds is None:
+            out_adds = sum(o.add_key.shape[1] for o in ops_list)
+        if out_rmvs is None:
+            out_rmvs = sum(o.rmv_key.shape[1] for o in ops_list)
+        return coalesce_topk_rmv_ops(
+            ops_list, n_dcs=self.D, m_keep=self.M, out_adds=out_adds, out_rmvs=out_rmvs
+        )
+
     # -- merge (the batched replica-state join) ----------------------------
 
     def merge(self, a: TopkRmvDenseState, b: TopkRmvDenseState) -> TopkRmvDenseState:

@@ -36,6 +36,29 @@ def scatter_max_rows(table: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor)
     return scatter_max_rows_copy(table, rows, upd)
 
 
+def dedup_rows_run_max(rows: torch.Tensor, upd: torch.Tensor, n_rows: int):
+    """Collapse duplicate scatter rows to run heads carrying the run max.
+
+    Sort updates by row (stably); a suffix run-max gives every element
+    the max of its run from itself on, so each run's first element holds
+    the run's per-column total; only that head keeps its row index (the
+    rest point at the `n_rows` sentinel, which no consumer matches).
+
+    rows [Br] i32, upd [Br, D] i32 >= 0. Returns (head_rows [Br],
+    total [Br, D]). K1 needs no such prepass (integer ``atomicMax``
+    commutes); this is the JAX prepass's contract, kept for callers that
+    want one update per row."""
+    from .segment import run_max
+
+    order = torch.sort(rows, stable=True).indices
+    r_s = rows[order]
+    total = run_max(upd[order], r_s, direction="suffix")
+    is_head = torch.ones_like(r_s, dtype=torch.bool)
+    is_head[1:] = r_s[1:] != r_s[:-1]
+    head_rows = torch.where(is_head, r_s, torch.full_like(r_s, n_rows))
+    return head_rows, total
+
+
 def table_addresses(shape, key: torch.Tensor, id_: torch.Tensor, valid: torch.Tensor):
     """Flat addresses into a [R, NK, P] table of the [R, B] ops that land
     in it, and the [R, B] mask of those ops, as the JAX package's
@@ -53,6 +76,13 @@ def table_addresses(shape, key: torch.Tensor, id_: torch.Tensor, valid: torch.Te
     keep = valid & k_in & i_in
     r = torch.arange(R, device=k.device)[:, None]
     return ((r * NK + k) * P + i)[keep], keep
+
+
+def wrapping_add(table: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """A new table: `table` with `vals` added at the flat addresses `flat`
+    (duplicates accumulate). An integer table wraps in its own dtype, as
+    JAX's ``.at[].add`` does; addition modulo 2^32 is exact in any order."""
+    return table.reshape(-1).index_add(0, flat, vals.to(table.dtype)).view(table.shape)
 
 
 def neg_i32(x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ I32 = torch.int32
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 MAX_SLOTS = 16  # the widest row counted in ``sort_slots.launches``
+WARP_MAX_SLOTS = 256  # the widest row a warp owns; wider ones (to WIDE_MAX_SLOTS) take a block
 WIDE_MAX_SLOTS = 8192  # the widest row whose candidates fit one block's shared memory
 GLOBAL_MAX_SLOTS = 1 << 30  # the widest row K3's int32 in-row indices address
 GLOBAL_SCRATCH_BYTES = 1 << 28  # device scratch of one chunk of rows wider than WIDE_MAX_SLOTS
@@ -192,7 +193,9 @@ def sort_slots(
     followed by side b's w_b (W = w_a + w_b). On a card, rows of W <=
     MAX_SLOTS count in ``launches`` (a thread a row up to 8, a half-warp
     up to 16), wider rows up to WIDE_MAX_SLOTS in ``wide_launches`` (a
-    warp a row up to 256, a block above, the row in shared memory), and
+    warp a row up to WARP_MAX_SLOTS = 256, a block above, the row in
+    shared memory; the block path's launches also count in
+    ``block_launches``), and
     wider rows up to GLOBAL_MAX_SLOTS in ``global_launches`` (a block a
     row, the row in a device scratch of at most GLOBAL_SCRATCH_BYTES per
     chunk of rows); the plain version takes any W. With `rmv_vc`
@@ -249,11 +252,14 @@ def sort_slots(
         rc = fn(*args, _ptr(scratch), chunk, stream)
     _build.check(rc, symbol)
     setattr(sort_slots, counter, getattr(sort_slots, counter) + 1)
+    if WARP_MAX_SLOTS < W <= WIDE_MAX_SLOTS:
+        sort_slots.block_launches += 1
     return o_s, o_d, o_t, n_live
 
 
 sort_slots.launches = 0
 sort_slots.wide_launches = 0
+sort_slots.block_launches = 0
 sort_slots.global_launches = 0
 _K3_ARGS = (
     [ctypes.c_void_p] * 3 + [ctypes.c_int]  # side a, w_a

@@ -40,8 +40,29 @@ Phases, each printing one line (any failure exits non-zero):
    (> 8 192, so the converter's call at W = M and the fold's at W = 2M take
    K3's global-scratch path) against the host set join, and that path held
    against its plain version on the converter's and the first fold level's
-   inputs;
-9. the kernels line, then the ok line.
+   inputs; then the same at M = 2 000, where both calls take K3's block
+   path (256 < W <= 8 192, the row in shared memory);
+9. coalesced replay: ``DenseReplay.apply_coalesced`` of 4 batches at the
+   main path's shapes (whole-log compaction of 139 264 ops per replica,
+   then one apply that must launch K1c, K2 and K3), the coalesce and the
+   apply timed apart, the peak memory of the coalesce, the op counts in
+   and out, beside the same 4 batches applied one by one; the coalesced
+   batch applied again with every K1c, K2 and K3 call held against its
+   plain version on that call's inputs, ending in the same state; one
+   coalesce under torch.profiler (device time by kernel, idle share); at a
+   reduced size the coalesced ops and the applied state equal on the CPU
+   and the card;
+10. MONOID engines, deltas and laws: ``DenseReplay`` of average,
+   wordcount and worddocumentcount (``apply_doc_ops_compact``) at
+   ``benchmarks/bench_all.py``'s shapes, 4 rounds with a duplicated
+   contributor in the sync after round 2, bit-identical to the same run on
+   the CPU; ``make_delta``/``apply_any_delta`` on phase 9's state give it
+   back bit for bit; ``coalesce_deltas`` of 3 chained wordcount deltas
+   equals the interval's delta; ``check_engine_laws`` holds for the six
+   registered fixtures on the card (the topk_rmv fixture's merges must
+   launch K3, each call held against the plain K3) and catches the broken
+   merge;
+11. the kernels line, then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -49,6 +70,8 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import re
@@ -77,6 +100,10 @@ BM_OTHERS = {"topk": 8, "leaderboard": 16, "wordcount": 64, "worddocumentcount":
 EARLIER_K3_MS = {"convert": 1.492, "levels": [2.27, 1.15, 0.59, 0.30, 0.16]}
 # Capacity of the wide-row check: past K3's shared-memory rows (8 192).
 WIDE_M = 8_400
+# Capacity of the block-path check: 256 < M and 2M <= 8 192.
+BLOCK_M = 2_000
+# Batches per coalesced round: the rounds between two syncs in phase 4.
+COALESCE_K = 4
 
 
 def log(phase: str, **kw) -> None:
@@ -103,6 +130,54 @@ def rmv_sector_bytes(torch, sides, rmv_vc) -> int:
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def held_against_plain(torch, checks: dict):
+    """While open, every call the topk_rmv engine makes to K1c, K2 or K3
+    also runs the kernel's plain version on the call's own arguments, and
+    the two must be equal (``torch.equal``). `checks` gets one entry per
+    wrapper and input shape: calls and max_abs_err. The wrappers count
+    their launches as always; the plain calls count nothing."""
+    from antidote_ccrdt_tpu_torch.models import topk_rmv_dense as trd
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place_plain
+
+    def held(name, wrapper, plain, shape):
+        def call(*args, **kw):
+            got = wrapper(*args, **kw)
+            want = plain(*args, **kw)
+            got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            if not all(torch.equal(x, y) for x, y in zip(got_t, want_t)):
+                raise AssertionError(f"{name} at {shape(*args, **kw)} disagrees with its plain version")
+            entry = checks.setdefault(f"{name} {shape(*args, **kw)}", dict(calls=0, max_abs_err=0))
+            entry["calls"] += 1
+            entry["max_abs_err"] = max(entry["max_abs_err"], max_abs_err(got_t, want_t))
+            return got
+        return call
+
+    def k3_shape(sides, m_keep, rmv_vc=None):
+        return (f"W={sum(s[0].shape[-1] for s in sides)} rows={sides[0][0][..., 0].numel()} "
+                f"fused={rmv_vc is not None}")
+
+    # The engine's names are patched, not the wrappers' own: a wrapper
+    # counts its launches on its module-level name.
+    patches = [
+        (trd, "scatter_max_rows", held(  # dense_table.scatter_max_rows: one K1c launch
+            "K1c", trd.scatter_max_rows, kernels.scatter_max_rows_copy_plain,
+            lambda table, rows, upd: f"table={list(table.shape)} rows={list(rows.shape)}")),
+        (trd, "delta_place", held(
+            "K2", trd.delta_place, delta_place_plain, lambda *a: f"stream={list(a[3].shape)} T={a[6]} M={a[7]}")),
+        (trd, "sort_slots", held("K3", trd.sort_slots, kernels.sort_slots_plain, k3_shape)),
+    ]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    try:
+        for mod, attr, fn in patches:
+            setattr(mod, attr, fn)
+        yield checks
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
@@ -339,6 +414,9 @@ def phase_main_path(torch, card: str):
     main_path = ("scatter_max_rows_copy", "delta_place", "sort_slots")
     for w in wrappers.values():
         w.launches = 0
+    # Earlier phases' garbage is collected here, not by a full collection
+    # that the rounds' allocations would trigger inside the timed region.
+    gc.collect()
     sync()
     # Phase 3's inputs stay allocated until their device times are taken
     # after phase 5: the main path's peak is counted above them.
@@ -589,17 +667,19 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
     return launches, wide, dict(narrow, library_ms=None)
 
 
-def phase_wide_rows(torch, card: str, dev: str = "cuda"):
-    """batch_merge at a capacity past K3's shared-memory rows, and K3's
-    global-scratch path against its plain version on that call's inputs."""
+def phase_wide_rows(torch, card: str, m: int, counter: str, kernel: str, dev: str = "cuda"):
+    """batch_merge at capacity M = `m` (the converter's K3 call at W = m,
+    the fold's at W = 2m), and the K3 path those calls take (its launches
+    in `counter`, its CUDA kernel `kernel`) against its plain version on
+    the converter's and the first fold level's inputs."""
     from antidote_ccrdt_tpu_torch import batch_merge
     from antidote_ccrdt_tpu_torch.core import batch_merge as bm
     from antidote_ccrdt_tpu_torch.harness import scalar_states as ss
     from antidote_ccrdt_tpu_torch.ops import kernels
     from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms, sync
 
-    states = ss.topk_rmv_capacity_states(WIDE_M)
-    counters = ("launches", "wide_launches", "global_launches")
+    states = ss.topk_rmv_capacity_states(m)
+    counters = ("launches", "wide_launches", "block_launches", "global_launches")
     for c in counters:
         setattr(kernels.sort_slots, c, 0)
     sync()
@@ -608,10 +688,10 @@ def phase_wide_rows(torch, card: str, dev: str = "cuda"):
     sync()
     call_s = time.perf_counter() - t0
     launches = {c: getattr(kernels.sort_slots, c) for c in counters}
-    if launches["global_launches"] < 2:
-        raise AssertionError(f"batch_merge at M = {WIDE_M} did not take K3's global path twice: {launches}")
+    if launches[counter] < 2:
+        raise AssertionError(f"batch_merge at M = {m} did not launch K3's {counter} path twice: {launches}")
     if merged != ss.topk_rmv_set_join(states):
-        raise AssertionError(f"batch_merge at M = {WIDE_M} disagrees with the host set join")
+        raise AssertionError(f"batch_merge at M = {m} disagrees with the host set join")
 
     raw = bm.topk_rmv_tables(states, dev)[0]
     Mb = raw.slot_ts.shape[-1]
@@ -632,7 +712,7 @@ def phase_wide_rows(torch, card: str, dev: str = "cuda"):
         ref = kernels.sort_slots_plain(sides, Mb, vc)
         sync()
         if not all(torch.equal(x, y) for x, y in zip(got, ref)):
-            raise AssertionError(f"K3's global path ({label}, W = {W}) disagrees with its plain version")
+            raise AssertionError(f"K3's {counter} path ({label}, W = {W}) disagrees with its plain version")
         # Bytes, or the bitonic network's compare-exchanges (about 12
         # integer operations each) over the row padded to P = 2^k.
         lg = (W - 1).bit_length()
@@ -640,13 +720,280 @@ def phase_wide_rows(torch, card: str, dev: str = "cuda"):
                          rows * (1 << (lg - 1)) * lg * (lg + 1) // 2 * 12)
         out[label] = dict(W=W, rows=rows, max_abs_err=max_abs_err(got, ref),
                           ms=cuda_time_ms(lambda: kernels.sort_slots(sides, Mb, rmv_vc=vc), reps=5, warmup=1),
+                          device_ms=device_ms(torch, lambda: kernels.sort_slots(sides, Mb, rmv_vc=vc), kernel, reps=5),
                           plain_ms=cuda_time_ms(lambda: kernels.sort_slots_plain(sides, Mb, vc), reps=3, warmup=1),
                           bound_ms=b, bound_by=by)
-    log("wide rows", card=card, M=Mb, states=len(states), ids=len(ids), call_s=call_s, launches=launches, **out)
+    log("wide rows", card=card, M=Mb, path=counter, states=len(states), ids=len(ids), call_s=call_s,
+        launches=launches, **out)
     fold = out["fold"]
     row = dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), ms=fold["ms"], plain_ms=fold["plain_ms"],
                bound_ms=fold["bound_ms"], bound_by=fold["bound_by"], library_ms=None)
-    return launches["global_launches"], row
+    return launches[counter], row
+
+
+def phase_coalesced(torch, card: str, dev: str = "cuda"):
+    """The coalesced replay at the main path's shapes: COALESCE_K batches
+    fused by whole-log compaction and applied as one round."""
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import convert, registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms, sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    dense = registry.make_dense("topk_rmv", n_ids=I, n_dcs=R, size=K, slots_per_id=M, device=dev)
+    gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7), device=dev)
+    batches = [gen.next_batch(B, BR) for _ in range(COALESCE_K)]  # set-up, on the card
+
+    # The same batches one round each, for comparison.
+    gc.collect()
+    seq = DenseReplay(dense, R)
+    seq_ms = []
+    for ops in batches:
+        sync()
+        t0 = time.perf_counter()
+        seq.apply(ops)
+        sync()
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+
+    wrappers = {"scatter_max_rows_copy": kernels.scatter_max_rows_copy, "delta_place": delta_place,
+                "sort_slots": kernels.sort_slots}
+    rp = DenseReplay(dense, R)
+    prev = rp.state
+    for w in wrappers.values():
+        w.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    rp.apply_coalesced(batches)
+    sync()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: w.launches for n, w in wrappers.items()}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the coalesced apply did not launch K1c, K2 and K3: {launches}")
+    ops_in, ops_out = rp.metrics.counters["coalesce_ops_in"], rp.metrics.counters["coalesce_ops_out"]
+
+    # The coalesce alone: its peak memory above what it was given, and its
+    # time; then the apply of its output alone.
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    fused, n_add, n_rmv = dense.coalesce_ops(batches)
+    sync()
+    peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9
+    coalesce_ms = cuda_time_ms(lambda: dense.coalesce_ops(batches), reps=3, warmup=1)
+    start = dense.init(R)
+    apply_ms = cuda_time_ms(lambda: dense.apply_ops(start, fused, collect_dominated="table"), reps=3, warmup=1)
+    one_apply_ms = cuda_time_ms(lambda: dense.apply_ops(start, batches[0], collect_dominated="table"),
+                                reps=3, warmup=1)
+    # Where the coalesce's device time goes: one call under torch.profiler.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dense.coalesce_ops(batches)
+        sync()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    log("coalesce profile", wall_ms=prof_wall_ms, device_busy_ms=busy_ms,
+        idle_share=1 - busy_ms / prof_wall_ms if prof_wall_ms else None,
+        top=[{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in top])
+    # Every kernel call of the coalesced apply held against its plain
+    # version on that call's own inputs: the coalesced batch, applied
+    # again to the state the timed round started from, must end in the
+    # timed round's state.
+    held = {}
+    with held_against_plain(torch, held):
+        again, _ = dense.apply_ops(prev, fused, **getattr(dense, "replication_extras_kwargs", {}))
+    sync()
+    if not all(torch.equal(x, y) for x, y in zip(leaves(again), leaves(rp.state))):
+        raise AssertionError("the coalesced batch applied again ends in another state than the coalesced round")
+    if {k.split()[0] for k in held} != {"K1c", "K2", "K3"}:
+        raise AssertionError(f"the coalesced apply did not call K1c, K2 and K3 under the check: {sorted(held)}")
+    del again
+    lossy_seq, lossy_c = int(seq.state.lossy.sum()), int(rp.state.lossy.sum())
+    equal = dense.equal(seq.state, rp.state)
+    log("coalesced", card=card, batches=COALESCE_K, log_rows=int(fused.add_key.shape[1] + fused.rmv_key.shape[1]),
+        launches=launches, held_against_plain=held, round_ms=round_ms, coalesce_ms=coalesce_ms, apply_ms=apply_ms,
+        one_batch_apply_ms=one_apply_ms, sequential_round_ms=seq_ms,
+        ops_in=ops_in, ops_out=ops_out, out_over_in=ops_out / ops_in,
+        live_adds=int(n_add.sum()), live_rmvs=int(n_rmv.sum()), coalesce_peak_gb=peak_gb,
+        equal_to_sequential=equal, lossy_replicas_sequential=lossy_seq, lossy_replicas_coalesced=lossy_c)
+    del seq, fused, start
+
+    # Bit identity, CPU against card, at the reduced identity shapes.
+    r, i, b, br = 4, 4096, 2048, 128
+
+    def run(device):
+        d = registry.make_dense("topk_rmv", n_ids=i, n_dcs=r, size=K, slots_per_id=M, device=device)
+        g = TopkRmvEffectGen(Workload(r, i, zipf_a=1.2, score_max=1000, seed=11), device=device)
+        bs = [g.next_batch(b, br) for _ in range(COALESCE_K)]
+        ops, na, nr = d.coalesce_ops(bs)
+        st, _ = d.apply_ops(d.init(r), ops, collect_dominated="table")
+        return convert.to_numpy(ops), na, nr, convert.to_numpy(st)
+
+    cpu, dev_out = run("cpu"), run(dev)
+    for part_cpu, part_card in zip(cpu, dev_out):
+        parts = part_cpu.items() if isinstance(part_cpu, dict) else [("counts", part_cpu)]
+        for name, value in parts:
+            other = part_card[name] if isinstance(part_card, dict) else part_card
+            if not np.array_equal(value, other):
+                raise AssertionError(f"coalesced round: CPU and card disagree on {name}")
+    log("coalesced identity", replicas=r, ids=i, adds=b, rmvs=br, batches=COALESCE_K, bit_identical=True)
+    return dense, prev, rp.state
+
+
+def phase_monoid(torch, card: str, topk_rmv, dev: str = "cuda"):
+    """The MONOID engines' replays on the card against the CPU, deltas and
+    their coalescing, and the merge laws on the card."""
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import convert, registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
+    from antidote_ccrdt_tpu_torch.models import average as av
+    from antidote_ccrdt_tpu_torch.models import wordcount as wc
+    from antidote_ccrdt_tpu_torch.ops import kernels, laws
+    from antidote_ccrdt_tpu_torch.ops.compaction import coalesce_deltas
+    from antidote_ccrdt_tpu_torch.parallel import delta
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    def t(a, device):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # benchmarks/bench_all.py's shapes: average (R, NK, B) = (2, 1000, 2^20),
+    # wordcount (64, V = 2^16, 2^16 Zipf(1.1) tokens), worddocumentcount
+    # (64, V = 2^16, 512 documents x 64 words of a 50 000-word vocabulary).
+    words = [f"w{k}" for k in range(50_000)]
+    table = wc.fnv1a_buckets(words, 1 << 16)
+
+    def average_round(rng, device):
+        R_, NK_, B_ = 2, 1000, 1 << 20
+        return av.AverageOps(key=t(rng.integers(0, NK_, (R_, B_)).astype(np.int32), device),
+                             value=t(rng.integers(-100, 100, (R_, B_)).astype(np.int32), device),
+                             count=t(rng.integers(1, 3, (R_, B_)).astype(np.int32), device))
+
+    def wordcount_round(rng, device):
+        raw = rng.zipf(1.1, size=(64, 1 << 16))
+        return wc.WordcountOps(key=t(np.zeros((64, 1 << 16), np.int32), device),
+                               token=t(((raw - 1) % (1 << 16)).astype(np.int32), device))
+
+    def worddoc_round(rng, device):
+        uniq = ((rng.zipf(1.1, size=(64, 512 * 64)) - 1) % len(words)).astype(np.int32)
+        return (t(uniq, device), t(np.full((64, 512), 64, np.int32), device),
+                t(np.full(64, 512 * 64, np.int32), device))
+
+    cases = {
+        "average": (lambda dv: registry.make_dense("average", device=dv), 2, 1000, average_round, None),
+        "wordcount": (lambda dv: registry.make_dense("wordcount", n_buckets=1 << 16, device=dv), 64, 1,
+                      wordcount_round, None),
+        "worddocumentcount": (lambda dv: registry.make_dense("worddocumentcount", n_buckets=1 << 16, device=dv),
+                              64, 1, worddoc_round, "compact"),
+    }
+    results = {}
+    gc.collect()
+    for name, (make, n_rep, nk, draw, mode) in cases.items():
+        runs = {}
+        for device in ("cpu", dev):
+            eng = make(device)
+            rp = DenseReplay(eng, n_rep, n_keys=nk)
+            rng = np.random.default_rng(31)
+            tbl = t(table, device)
+            round_ms, sync_ms = [], []
+            for rnd in range(4):
+                ops = draw(rng, device)
+                if device != "cpu":
+                    sync()
+                t0 = time.perf_counter()
+                if mode == "compact":
+                    rp.state, _ = eng.apply_doc_ops_compact(rp.state, *ops, bucket_table=tbl)
+                else:
+                    rp.apply(ops)
+                if device != "cpu":
+                    sync()
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                if rnd == 1:
+                    t0 = time.perf_counter()
+                    rp.sync([0] + list(range(n_rep)))  # replica 0 delivered twice
+                    if device != "cpu":
+                        sync()
+                    sync_ms.append((time.perf_counter() - t0) * 1e3)
+            parts = {f"rows.{f}": v for f, v in convert.to_numpy(rp.state).items()}
+            parts.update({f"base.{f}": v for f, v in convert.to_numpy(rp.base).items()})
+            rp.sync()
+            parts.update({f"final base.{f}": v for f, v in convert.to_numpy(rp.base).items()})
+            runs[device] = (parts, round_ms, sync_ms, rp.converged())
+        for label, value in runs["cpu"][0].items():
+            if not np.array_equal(value, runs[dev][0][label]):
+                raise AssertionError(f"{name}: CPU and card disagree on {label}")
+        if not runs[dev][3]:
+            raise AssertionError(f"{name}: replicas did not converge after the last sync")
+        results[name] = dict(replicas=n_rep, round_ms=runs[dev][1], sync_ms=runs[dev][2], bit_identical=True)
+    log("monoid", card=card, **results)
+
+    # A delta of phase 9's coalesced round gives its state back, bit for bit.
+    dense, prev, cur = topk_rmv
+    sync()
+    t0 = time.perf_counter()
+    d = delta.make_delta(dense, prev, cur)
+    back = delta.apply_any_delta(dense, prev, d)
+    sync()
+    delta_s = time.perf_counter() - t0
+    if not all(torch.equal(x, y) for x, y in zip(leaves(back), leaves(cur))):
+        raise AssertionError("apply_any_delta(prev, make_delta(prev, cur)) differs from cur")
+    full_bytes = sum(x.numel() * x.element_size() for x in leaves(cur))
+    del back
+
+    # Three chained wordcount deltas coalesce to the interval's delta.
+    eng = registry.make_dense("wordcount", n_buckets=1 << 16, device=dev)
+    rng = np.random.default_rng(41)
+    chain = [eng.init(64, 1)]
+    for _ in range(3):
+        chain.append(eng.apply_ops(chain[-1], wordcount_round(rng, dev))[0])
+    fused = coalesce_deltas(eng, [delta.make_delta(eng, a, b) for a, b in zip(chain, chain[1:])])
+    whole = delta.make_delta(eng, chain[0], chain[-1])
+    if not all(torch.equal(x, y) for x, y in zip(leaves(fused), leaves(whole))):
+        raise AssertionError("coalesce_deltas of 3 wordcount deltas differs from the interval's delta")
+    if not all(torch.equal(x, y) for x, y in zip(leaves(delta.apply_any_delta(eng, chain[0], fused)),
+                                                  leaves(chain[-1]))):
+        raise AssertionError("the coalesced wordcount delta does not give the last state back")
+
+    # The merge laws on the card, and the broken merge caught. The
+    # topk_rmv fixture's kernel calls are counted (counts reset just
+    # before its check) and each is held against its plain version.
+    reports, law_kernels = {}, {}
+    for name, fx in sorted(registry.law_fixtures().items()):
+        f = fx(3, 128, device=dev)
+        if name == "topk_rmv":
+            for c in ("launches", "wide_launches", "block_launches", "global_launches"):
+                setattr(kernels.sort_slots, c, 0)
+            with held_against_plain(torch, law_kernels):
+                rep = laws.check_engine_laws(f["dense"], f["states"], f["chain"])
+            law_launches = kernels.sort_slots.launches
+            if law_launches < 1 or not any(k.startswith("K3") for k in law_kernels):
+                raise AssertionError(f"the topk_rmv law check did not launch K3: {law_launches}, {law_kernels}")
+        else:
+            rep = laws.check_engine_laws(f["dense"], f["states"], f["chain"])
+        if not rep["ok"]:
+            raise AssertionError(f"law check failed for {name}: {rep}")
+        reports[name] = sorted(rep["laws"])
+    f = laws.broken_merge_fixture(3, 128, device=dev)
+    broken = laws.check_engine_laws(f["dense"], f["states"], f["chain"])["laws"]
+    if broken["commutativity"]["ok"] or broken["associativity"]["ok"] or not broken["idempotence"]["ok"]:
+        raise AssertionError(f"the broken merge was not caught as expected: {broken}")
+    if len(reports) != 6:
+        raise AssertionError(f"expected six law fixtures, found {sorted(reports)}")
+    log("deltas and laws", card=card, topk_rmv_delta_rows=int(d.rows.numel()),
+        topk_rmv_delta_bytes=delta.delta_nbytes(d), topk_rmv_state_bytes=full_bytes, delta_round_trip_s=delta_s,
+        wordcount_chain_coalesced_equal=True, wordcount_delta_cells=int(whole["idx"].numel()),
+        laws_ok=reports, topk_rmv_law_k3_launches=law_launches, topk_rmv_law_kernels_held=law_kernels,
+        broken_merge={k: v["ok"] for k, v in broken.items()})
 
 
 def main() -> int:
@@ -670,7 +1017,13 @@ def main() -> int:
     bm_launches, rows["sort_slots_wide"], rows["sort_slots_9_16"] = phase_batch_merge(torch, card)
     launches["sort_slots_wide"] = bm_launches["sort_slots_wide"]
     launches["sort_slots_9_16"] = bm_launches["sort_slots"]  # the converter's call, W = M = 13
-    launches["sort_slots_global"], rows["sort_slots_global"] = phase_wide_rows(torch, card)
+    launches["sort_slots_global"], rows["sort_slots_global"] = phase_wide_rows(
+        torch, card, WIDE_M, "global_launches", "sort_slots_block_kernel")
+    launches["sort_slots_block"], rows["sort_slots_block"] = phase_wide_rows(
+        torch, card, BLOCK_M, "block_launches", "sort_slots_block_kernel")
+    topk_rmv = phase_coalesced(torch, card)
+    phase_monoid(torch, card, topk_rmv)
+    del topk_rmv
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -684,6 +1037,8 @@ def main() -> int:
                             "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
         "sort_slots_wide": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
                             "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+        "sort_slots_block": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                             "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
         "sort_slots_global": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
                               "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
     }

@@ -17,7 +17,13 @@ import torch
 from antidote_ccrdt_tpu_torch import batch_merge, convert, registry
 from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
 from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
-from antidote_ccrdt_tpu_torch.harness.scalar_states import seeded_states, topk_rmv_capacity_states, topk_rmv_set_join
+from antidote_ccrdt_tpu_torch.harness.scalar_states import (
+    seeded_effects,
+    seeded_states,
+    topk_rmv_capacity_states,
+    topk_rmv_effects,
+    topk_rmv_set_join,
+)
 from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvDenseState
 from antidote_ccrdt_tpu_torch.ops import kernels
 from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place, delta_place_plain
@@ -411,3 +417,63 @@ def assert_trees_equal(a, b):
         assert b is None
     else:
         assert np.array_equal(a, b)
+
+
+# --- compaction and the MONOID engines ------------------------------------------
+
+
+@pytest.mark.cuda
+def test_coalesced_apply_launches_the_kernels_and_matches_cpu(cuda):
+    out = {}
+    for dev in ("cpu", cuda):
+        dense = registry.make_dense("topk_rmv", n_ids=400, n_dcs=4, size=20, slots_per_id=4, device=dev)
+        gen = TopkRmvEffectGen(Workload(4, 400, zipf_a=1.2, score_max=50, seed=6), device=dev)
+        rp = DenseReplay(dense, 4)
+        before = (kernels.scatter_max_rows_copy.launches, delta_place.launches, kernels.sort_slots.launches)
+        rp.apply_coalesced([gen.next_batch(300, 20) for _ in range(4)])
+        after = (kernels.scatter_max_rows_copy.launches, delta_place.launches, kernels.sort_slots.launches)
+        if str(dev) != "cpu":
+            torch.cuda.synchronize()
+            assert all(a > b for a, b in zip(after, before))
+        out[str(dev)] = (convert.to_numpy(rp.state), dict(rp.metrics.counters))
+    assert out["cpu"][1] == out[str(cuda)][1]
+    assert_trees_equal(out["cpu"][0], out[str(cuda)][0])
+
+
+@pytest.mark.cuda
+def test_monoid_engines_on_card_match_cpu(cuda):
+    from antidote_ccrdt_tpu_torch.models import average as av
+    from antidote_ccrdt_tpu_torch.models import wordcount as wc
+
+    out = {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(9)
+        avg = registry.make_dense("average", device=dev)
+        ops = av.AverageOps(key=t(rng.integers(-5, 40, (3, 500)).astype(np.int32)).to(dev),
+                            value=t(rng.choice([2**30, -7, 99], (3, 500)).astype(np.int32)).to(dev),
+                            count=t(rng.integers(0, 3, (3, 500)).astype(np.int32)).to(dev))
+        a_st, _ = avg.apply_ops(avg.init(3, 32), ops)
+        words = registry.make_dense("wordcount", n_buckets=256, device=dev)
+        w_st, _ = words.apply_ops(words.init(3, 2), wc.WordcountOps(
+            key=t(rng.integers(-2, 2, (3, 900)).astype(np.int32)).to(dev),
+            token=t(rng.integers(-1, 270, (3, 900)).astype(np.int32)).to(dev)))
+        uniq = t(rng.integers(0, 300, (3, 400)).astype(np.int32)).to(dev)
+        lens = t(rng.integers(0, 30, (3, 20)).astype(np.int32)).to(dev)
+        counts = t(np.array([400, 250, 0], np.int32)).to(dev)
+        table = t(rng.integers(0, 256, 280).astype(np.int32)).to(dev)
+        d_st, _ = words.apply_doc_ops_compact(words.init(3, 2), uniq, lens, counts, table, key=1)
+        out[str(dev)] = [convert.to_numpy(x) for x in (a_st, avg.merge(a_st, a_st), w_st, d_st)] + [
+            avg.observe(a_st).cpu().numpy().view(np.int32)]
+    assert_trees_equal(out["cpu"], out[str(cuda)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["topk_rmv", "average", "topk", "leaderboard", "wordcount", "worddocumentcount"])
+def test_compact_effect_ops_on_card_matches_cpu(cuda, name):
+    from antidote_ccrdt_tpu_torch.ops.compaction import compact_effect_ops
+
+    if name == "topk_rmv":
+        effects = [e for es in topk_rmv_effects(3, 40, 60, 6, seed=4) for e in es]
+    else:
+        effects = [e for es in seeded_effects(name, 3, seed=4) for e in es]
+    assert compact_effect_ops(name, effects, device=cuda) == compact_effect_ops(name, effects, device="cpu")
