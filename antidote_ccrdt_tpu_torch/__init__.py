@@ -15,9 +15,17 @@ This package imports torch and numpy only: never jax, never any module
 of ``antidote_ccrdt_tpu`` (whose package ``__init__`` imports jax).
 
 Ported so far: the dense topk_rmv engine (``apply_ops``, ``merge``,
-``observe``), its effect-op generator and the multi-DC ``DenseReplay``;
-``batch_merge`` for the six type names, with the scalar models, the clock,
-the snapshot codec, ETF/wire, and the topk and leaderboard dense engines.
+``observe``, ``coalesce_ops``), its effect-op and prepare-op generators
+and the multi-DC ``DenseReplay`` (with its drop report); ``batch_merge``
+for the six type names and its ``host_device`` region, with the scalar
+models, the clock, the snapshot codec, ETF/wire, and the topk,
+leaderboard, average and wordcount dense engines; whole-log op compaction
+(``ops/compaction.py``, ``ops/segment.py``), delta-state replication
+(``parallel/``) and the merge-law checker (``ops/laws.py``); the
+validation checks (``utils/validate.py``), metrics with profiler hooks
+and the timing helpers (``utils/``). The kernels: K1 and K1c (tombstone
+scatter-max), K2 (delta placement) and K3 (the slot sort, a path for
+each range of row widths) in ``csrc/``.
 """
 
 from .core.batch_merge import batch_merge  # noqa: F401

@@ -31,13 +31,14 @@ equals the JAX package's ``batch_merge`` on the same inputs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import HOST_ONLY, DeviceLike, resolve_device
 from .behaviour import registry
 
 _I32_MIN, _I32_MAX = -(2**31 - 1), 2**31 - 1
@@ -107,6 +108,22 @@ def merge_into(merge, state, incoming, donate_incoming: bool = True, site: str =
     result, so here it is the engine's merge, which writes no input.
     `site` labels the call for the observability hooks, not ported yet."""
     return merge(state, incoming)
+
+
+@contextlib.contextmanager
+def host_device() -> Iterator[None]:
+    """A region in which new tensors and merges go to the host CPU: the
+    default device of tensor factories is the CPU, and an entry point
+    called without a device (``batch_merge``, ``registry.make_dense``)
+    runs its plain path there. The pager's cold-fold tier runs the same
+    merges as the card's hot path, on CPU tensors. A device passed
+    explicitly still wins."""
+    token = HOST_ONLY.set(True)
+    try:
+        with torch.device("cpu"):
+            yield
+    finally:
+        HOST_ONLY.reset(token)
 
 
 def host_merge_into(merge, state, incoming, donate_incoming: bool = True, site: str = "batch_merge.into"):

@@ -20,7 +20,7 @@
 // (sorted, no duplicate within a side): the join of apply_ops (:631) and of
 // merge (:689).
 //
-// Four paths compute the same function; the caller picks one by W:
+// Three paths compute the same function; the caller picks one by W:
 //
 // * sort_slots_kernel<8>, W <= 8 (the replay's 2M = 8): one thread per
 //   row, the candidates and their liveness in registers, Batcher's 8-input
@@ -44,14 +44,14 @@
 //   ballots: the kept slots stay sorted and every blank is one value, so
 //   each kept slot goes to its rank among the kept, moved past the blanks
 //   when it ranks after a blank.
-// * sort_slots_block_kernel<false>, 256 < W <= 8192: a block of P / 8
-//   threads per row, the row in shared memory (16 bytes a candidate;
-//   8192 x 16 B is the largest power-of-two row in a block's 227 KB), a
-//   bitonic sort, then the same placement by a block scan of three counts.
-// * sort_slots_block_kernel<true>, W > 8192: the same with the row in a
-//   device scratch of chunk_rows x P slots that the caller allocates;
-//   rows go in chunks of chunk_rows, one launch each. Every index within a
-//   row is an int: W <= 2^30.
+// * the row paths, W > 256 (sort_slots_rows; the block path up to 8192
+//   and the global path above, in the caller's counts): a chain of kernels
+//   over tiles of T = 2^k candidates, many blocks a row (see "row paths"
+//   below). Each tile's survivors are merged when both of its sides are
+//   sorted runs and sorted otherwise; a row of several tiles is
+//   merged run by run through a device scratch, and its epilogue runs
+//   across blocks. A row that fits one tile takes one launch and no
+//   scratch. Every index within a row is an int: W <= 2^30.
 //
 // Bound on the H100: bytes. At the replay's shapes (N = 32 x 100k rows,
 // M = 4 per side, D = 32) the fused call reads 6 x N x 4 int32 of slots and
@@ -59,9 +59,10 @@
 // plus N int32 (0.17 GB): about 0.26 ms at 3.35 TB/s. A row whose
 // candidates all have ts <= 0 reads no tombstone sector at all, so the
 // bound that counts only the 32-byte sectors its live candidates need is
-// lower (chip_smoke.py computes both). The sorts are O(P log^2 P)
-// compare-exchanges per row of a few integer operations, far below the
-// card's integer rate.
+// lower (chip_smoke.py computes both). What the inputs need of comparisons
+// is W a row for two sorted sides and W log2 W for a raw row, far below
+// the card's integer rate; the wide rows' calls are few rows, so there the
+// launches and the chain's dependent steps bound the time.
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -660,16 +661,56 @@ static int launch_warp_p(const int32_t* a_s, const int32_t* a_d, const int32_t* 
                                      o_d, o_t, n_live, N, m_keep, s);
 }
 
-// --- block paths: 256 < W -------------------------------------------------
+// --- row paths: 256 < W <= 2^30 -------------------------------------------
+//
+// A row is cut into tiles of T = 2^k candidates (the caller picks T: the
+// whole row while it fits one block, which is one launch with no scratch).
+// Candidates are Cands as on the warp path: fused, a dead one is
+// (INT32_MIN, 0, 0).
+//
+//   tile kernel, a block a tile (grid: rows x tiles): load the tile with
+//      the filter, then split it in its two pieces (side a's slots, side
+//      b's); each piece's survivors are compacted ahead of its dead by a
+//      block scan. If each piece is then sorted (two canonical sides: the
+//      fold, merge and apply_ops joins) the two pieces are merged: each
+//      thread finds where its E outputs start on the merge path (a binary
+//      search for how many of them come from either piece; on a tie side
+//      a's comes first) and merges them sequentially. Otherwise (raw rows)
+//      each warp sorts chunks of 128 in registers (the warp path's bitonic
+//      network) and the chunks are merged pairwise the same way in shared
+//      memory. A one-tile row goes on to the epilogue in the same block; a
+//      wider row's sorted tiles go to a device scratch of 16-byte cells;
+//   merge kernel, once per doubling of the run length L from T to W: each
+//      thread writes MERGE_SPAN consecutive outputs of a merged pair of
+//      runs, found by one binary search on the merge path and a
+//      sequential merge (the grid over rows x W / MERGE_SPAN). The last
+//      pass also sums, per block of outputs, the candidates kept (not an
+//      exact duplicate with ts > 0 of its predecessor), those better than
+//      a blank and those with ts > 0;
+//   place kernel, the epilogue across blocks: the row's earlier blocks'
+//      sums plus a block scan give each kept slot its place among the
+//      first m_keep (after the blanks when it ranks after a blank); it
+//      writes the kept slots, the blanks and n_live.
+//
+// What bounds it: phase 8's calls are 12-24 rows, so the bytes (a few MB)
+// and comparisons are microseconds of work; the launches of the chain and
+// the dependent steps inside a block (barriers, binary searches) set the
+// time. Merging instead of sorting two sorted sides, merge paths in place
+// of a search per candidate, and the epilogue's count folded into the last
+// merge pass each cut those. A row of several tiles on one thread-block
+// cluster, merged through distributed shared memory in one launch, was
+// slower at those shapes than the chain (PERF.md) and is not kept.
 
-constexpr int BLOCK_SMEM_MAX_P = 8192;  // 8192 x 16 B of shared memory per row
+constexpr int ROW_TILE_MAX = 8192;  // 2 x 8192 x 12 B of a tile block's shared memory
+constexpr int PASS_BLOCK = 256;     // threads of a merge or place block
 
 __device__ __forceinline__ int3 add3(int3 a, int3 b) {
   return make_int3(a.x + b.x, a.y + b.y, a.z + b.z);
 }
 
 // Inclusive scan of x over the block's threads, in thread order; *total is
-// the block's sum. scratch holds one value per warp.
+// the block's sum. scratch holds one value per warp. Every thread of the
+// block calls it; it may be called again right after.
 __device__ __forceinline__ int3 block_scan3(int3 x, int3* scratch, int3* total) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -679,6 +720,7 @@ __device__ __forceinline__ int3 block_scan3(int3 x, int3* scratch, int3* total) 
     if (lane >= o) x = add3(x, y);
   }
   const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  __syncthreads();  // an earlier call's readers are done with scratch
   if (lane == 31) scratch[warp] = x;
   __syncthreads();
   if (warp == 0) {
@@ -697,98 +739,387 @@ __device__ __forceinline__ int3 block_scan3(int3 x, int3* scratch, int3* total) 
   return x;
 }
 
-// One block per row: row row_base + blockIdx.x. kGlobal keeps the row's P
-// slots in scratch[blockIdx.x * P ...] (device memory), else in shared
-// memory.
-template <bool kGlobal>
-__global__ void __launch_bounds__(1024) sort_slots_block_kernel(
-    const int32_t* __restrict__ a_s, const int32_t* __restrict__ a_d,
-    const int32_t* __restrict__ a_t, int wa, const int32_t* __restrict__ b_s,
-    const int32_t* __restrict__ b_d, const int32_t* __restrict__ b_t, int wb,
-    const int32_t* __restrict__ rmv_vc, int D, int32_t* __restrict__ o_s,
-    int32_t* __restrict__ o_d, int32_t* __restrict__ o_t,
-    int32_t* __restrict__ n_live, int64_t row_base, int m_keep, int P,
-    Slot* scratch) {
-  extern __shared__ __align__(16) unsigned char block_smem[];
-  Slot* v = kGlobal ? scratch + (int64_t)blockIdx.x * P : reinterpret_cast<Slot*>(block_smem);
-  int3* scan_scratch =
-      reinterpret_cast<int3*>(block_smem + (kGlobal ? 0 : (size_t)P * sizeof(Slot)));
-  const int tpr = (int)blockDim.x;
-  const int lane = (int)threadIdx.x;
-  const int64_t row = row_base + blockIdx.x;
+__device__ __forceinline__ Cand cell(const int4& v) { return {v.x, v.y, v.z}; }
 
-  for (int i = lane; i < P; i += tpr)
-    v[i] = load_candidate(i, row, a_s, a_d, a_t, wa, b_s, b_d, b_t, wb, rmv_vc, D);
+// A call's inputs and outputs, as the row paths' tile kernel takes them.
+struct RowArgs {
+  const int32_t *a_s, *a_d, *a_t;
+  int wa;
+  const int32_t *b_s, *b_d, *b_t;
+  int wb;
+  const int32_t* rmv_vc;
+  int D;
+  int32_t *o_s, *o_d, *o_t, *n_live;
+  int m_keep;
+};
+
+// Candidate c of a row, as on the warp path: fused, a candidate that the
+// filter kills is dead_cand(); one with ts <= 0 dies whatever its tombstone,
+// so its tombstone is not read.
+__device__ __forceinline__ Cand row_candidate(const RowArgs& g, int c, int64_t row) {
+  Cand x;
+  if (c < g.wa) {
+    const int64_t o = row * g.wa + c;
+    x = {g.a_s[o], g.a_t[o], g.a_d[o]};
+  } else {
+    const int64_t o = row * g.wb + (c - g.wa);
+    x = {g.b_s[o], g.b_t[o], g.b_d[o]};
+  }
+  if (g.rmv_vc != nullptr) {
+    int32_t dom = 0;
+    if (x.t > 0 && x.d >= 0 && x.d < g.D) dom = max(__ldg(g.rmv_vc + row * g.D + x.d), 0);
+    if (!(x.t > dom)) x = dead_cand();
+  }
+  return x;
+}
+
+// The counts of sorted candidate x with predecessor p (has_p false for the
+// row's first): (kept, kept and better than a blank, kept with ts > 0).
+template <bool kFused>
+__device__ __forceinline__ int3 keep_counts(const Cand& x, const Cand& p, bool has_p) {
+  const Cand blank = kFused ? dead_cand() : Cand{NEG_INF, 0, 0};
+  if (has_p && csame(x, p) && x.t > 0) return make_int3(0, 0, 0);
+  return make_int3(1, cbetter(x, blank) ? 1 : 0, x.t > 0 ? 1 : 0);
+}
+
+// Writes kept slot x at its place. Fused, a dead slot is written as the
+// blank (NEG_INF, 0, 0).
+template <bool kFused>
+__device__ __forceinline__ void put_slot(int32_t* o_s, int32_t* o_d, int32_t* o_t, int64_t o,
+                                         const Cand& x) {
+  const bool blank = kFused && x.t <= 0;
+  o_s[o] = blank ? NEG_INF : x.s;
+  o_d[o] = blank ? 0 : x.d;
+  o_t[o] = blank ? 0 : x.t;
+}
+
+// Outputs [d0, d0 + cnt) of the merge of sorted runs a[0, la) and b[0,
+// lb), side a's first on a tie, passed to put(position, candidate): one
+// binary search for the split of the first d0 outputs between the runs
+// (merge path), then cnt steps of a sequential merge. With kPred, *pred
+// is output d0 - 1 (when d0 > 0), the later of the last candidate each
+// run gave to the first d0.
+template <bool kPred = false, typename LoadA, typename LoadB, typename Put>
+__device__ __forceinline__ void merge_span(int d0, int cnt, int la, int lb, LoadA a, LoadB b,
+                                           Put put, Cand* pred = nullptr) {
+  int lo = max(0, d0 - lb), hi = min(d0, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!cbetter(b(d0 - mid - 1), a(mid)))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int i = lo, j = d0 - lo;
+  if (kPred && d0 > 0) {
+    if (i == 0 || j == 0) {
+      *pred = i == 0 ? b(j - 1) : a(i - 1);
+    } else {
+      const Cand pa = a(i - 1), pb = b(j - 1);
+      *pred = cbetter(pb, pa) ? pa : pb;
+    }
+  }
+  Cand x = i < la ? a(i) : virtual_cand(), y = j < lb ? b(j) : virtual_cand();
+  for (int k = 0; k < cnt; ++k) {
+    if (j >= lb || (i < la && !cbetter(y, x))) {
+      put(d0 + k, x);
+      if (++i < la) x = a(i);
+    } else {
+      put(d0 + k, y);
+      if (++j < lb) y = b(j);
+    }
+  }
+}
+
+// Tile [base, base + n) of `row`, sorted into A or B (the one returned), by
+// the whole block; T = E x blockDim.x, A and B hold T candidates each.
+template <bool kFused>
+__device__ const Cand* sort_tile(const RowArgs& g, int64_t row, int base, int n, int T, Cand* A,
+                                 Cand* B, int3* scan) {
+  const int NT = blockDim.x, tid = threadIdx.x;
+  const int E = T / NT;
+  const int na = min(max(g.wa - base, 0), n);  // tile positions [0, na) are side a's
+  const int lo = tid * E, hi = min(lo + E, n);
+
+  // 1. Load with the filter (coalesced), then each thread counts the
+  //    survivors of its E consecutive positions in either piece.
+  for (int i0 = tid; i0 < n; i0 += 4 * NT) {  // four candidates in flight a thread
+    Cand x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i0 + u * NT < n)
+        x[u] = row_candidate(g, base + i0 + u * NT, row);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i0 + u * NT < n) A[i0 + u * NT] = x[u];
+  }
   __syncthreads();
-
-  // Bitonic sort, best first: pair q compares i (bit j clear) with i + j;
-  // blocks with bit k of i clear sort best first, the others worst first.
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int q = lane; q < (P >> 1); q += tpr) {
-        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-        Slot x = v[i], y = v[i + j];
-        if ((i & k) == 0 ? better(y, x) : better(x, y)) {
-          v[i] = y;
-          v[i + j] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // Each thread owns a chunk of E consecutive sorted slots and counts its
-  // kept slots, those better than a blank, and those with ts > 0.
-  const Slot blank = {NEG_INF, 0, 0, rmv_vc != nullptr ? 0 : 1};
-  const int E = P / tpr;
-  const int lo = lane * E;
   int3 cnt = make_int3(0, 0, 0);
-  for (int i = lo; i < lo + E; ++i) {
-    const Slot x = v[i];
-    if (i > 0 && is_dup(x, v[i - 1])) continue;
-    cnt = add3(cnt, make_int3(1, better(x, blank) ? 1 : 0, x.t > 0 ? 1 : 0));
+  for (int i = lo; i < hi; ++i) {
+    const bool s = !kFused || A[i].t > 0;  // fused, a survivor has ts >= 1
+    if (i < na)
+      cnt.x += s;
+    else
+      cnt.y += s;
   }
-  int3 total;
-  const int3 incl = block_scan3(cnt, scan_scratch, &total);
-  const int n_kept = total.x, above = total.y;
-  const int n_blank = P - n_kept;
-  // The kept slots better than a blank are the first `above` of them.
-  int c = incl.x - cnt.x;
-  const int64_t ob = row * m_keep;
-  for (int i = lo; i < lo + E; ++i) {
-    const Slot x = v[i];
-    if (i > 0 && is_dup(x, v[i - 1])) continue;
-    const int pos = c < above ? c : c + n_blank;
-    if (pos < m_keep) {
-      o_s[ob + pos] = x.s;
-      o_d[ob + pos] = x.d;
-      o_t[ob + pos] = x.t;
+  int3 tot;
+  const int3 incl = block_scan3(cnt, scan, &tot);
+  // 2. Each piece's survivors in order, then its dead, into B.
+  int pa = incl.x - cnt.x, pb = incl.y - cnt.y;
+  for (int i = lo; i < hi; ++i) {
+    const Cand x = A[i];
+    const bool s = !kFused || x.t > 0;
+    int pos;
+    if (i < na)
+      pos = s ? pa++ : tot.x + (i - pa);
+    else
+      pos = na + (s ? pb++ : tot.y + (i - na - pb));
+    B[pos] = x;
+  }
+  __syncthreads();
+  // 3. Merge when both pieces are sorted runs, else sort.
+  bool unsorted = false;
+  for (int i = max(lo, 1); i < hi; ++i)
+    if (i != na) unsorted |= cbetter(B[i], B[i - 1]);
+  unsorted = __syncthreads_or(unsorted);
+  const Cand* S;
+  if (!unsorted) {
+    if (lo < hi)
+      merge_span(lo, hi - lo, na, n - na, [&](int k) { return B[k]; },
+                 [&](int k) { return B[na + k]; }, [&](int p, const Cand& x) { A[p] = x; });
+    S = A;
+  } else {
+    // Sort: each warp sorts chunks of 128 in registers (the warp path's
+    // bitonic network, no block barrier), then the chunks are merged
+    // pairwise on the merge path between B and A, a barrier a pass.
+    for (int i = n + tid; i < T; i += NT) B[i] = virtual_cand();
+    __syncthreads();
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int c = warp * 128; c < T; c += NT * 4) {
+      Cand x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = B[c + e * 32 + lane];
+      bitonic<128, 32, 2>(x, lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) B[c + e * 32 + lane] = x[e];
     }
+    __syncthreads();
+    Cand *src = B, *dst = A;
+    for (int L = 128; L < T; L <<= 1) {
+      const int ps = lo & ~(2 * L - 1);  // this thread's E outputs lie in one pair of runs
+      merge_span(lo - ps, E, L, L, [&](int k) { return src[ps + k]; },
+                 [&](int k) { return src[ps + L + k]; }, [&](int p, const Cand& x) { dst[ps + p] = x; });
+      __syncthreads();
+      Cand* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+    S = src;
+  }
+  __syncthreads();
+  return S;
+}
+
+// Block b sorts tile b % ntiles of row row0 + b / ntiles. A row of one
+// tile goes on to the epilogue in this block; a wider row's sorted tile
+// goes to its place in the runs (W cells a row), the chain's first step.
+template <bool kFused>
+__global__ void __launch_bounds__(1024, 1) sort_slots_row_tile_kernel(RowArgs g, int64_t row0, int T,
+                                                                      int ntiles, int4* __restrict__ runs) {
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  Cand* A = reinterpret_cast<Cand*>(row_smem);
+  int3* scan = reinterpret_cast<int3*>(A + 2 * T);
+  const int W = g.wa + g.wb;
+  const int64_t local = blockIdx.x / ntiles;
+  const int64_t row = row0 + local;
+  const int base = (int)(blockIdx.x - local * ntiles) * T;
+  const int n = min(T, W - base);
+  const Cand* S = sort_tile<kFused>(g, row, base, n, T, A, A + T, scan);
+  const int tid = threadIdx.x, NT = blockDim.x;
+  if (ntiles > 1) {
+    int4* dst = runs + local * W + base;
+    for (int i = tid; i < n; i += NT) dst[i] = make_int4(S[i].s, S[i].t, S[i].d, 0);
+    return;
+  }
+  // The epilogue of a one-tile row: the kept slots' places by a block scan.
+  const int E = T / NT, lo = tid * E, hi = min(lo + E, n);
+  int3 c3 = make_int3(0, 0, 0);
+  for (int i = lo; i < hi; ++i)
+    c3 = add3(c3, keep_counts<kFused>(S[i], S[i > 0 ? i - 1 : 0], i > 0));
+  int3 tot;
+  const int3 incl = block_scan3(c3, scan, &tot);
+  const int above = tot.y, n_blank = n - tot.x;
+  int c = incl.x - c3.x;
+  const int64_t ob = row * g.m_keep;
+  for (int i = lo; i < hi; ++i) {
+    if (keep_counts<kFused>(S[i], S[i > 0 ? i - 1 : 0], i > 0).x == 0) continue;
+    const int pos = c < above ? c : c + n_blank;
+    if (pos < g.m_keep) put_slot<kFused>(g.o_s, g.o_d, g.o_t, ob + pos, S[i]);
     ++c;
   }
-  for (int q = above + lane; q < above + n_blank && q < m_keep; q += tpr) {
-    o_s[ob + q] = blank.s;
-    o_d[ob + q] = blank.d;
-    o_t[ob + q] = blank.t;
+  for (int q = above + tid; q < above + n_blank && q < g.m_keep; q += NT) {
+    g.o_s[ob + q] = NEG_INF;
+    g.o_d[ob + q] = 0;
+    g.o_t[ob + q] = 0;
   }
-  if (lane == 0) n_live[row] = total.z;
+  if (tid == 0) g.n_live[row] = tot.z;
 }
 
-static int next_pow2(int w, int lo) {
-  int P = lo;
-  while (P < w) P <<= 1;
-  return P;
+constexpr int MERGE_SPAN = 4;  // sorted positions a thread of the merge and place kernels
+
+// Runs of L sorted candidates, pairwise merged into runs of 2L; a thread
+// writes MERGE_SPAN consecutive outputs, a block PASS_BLOCK x MERGE_SPAN
+// (tpr blocks a row). kCount, on the last pass (one pair, the whole row):
+// each block also writes the epilogue's sums over its outputs, the kept
+// ones, those better than a blank and those with ts > 0.
+template <bool kFused, bool kCount>
+__global__ void __launch_bounds__(PASS_BLOCK) sort_slots_row_merge_kernel(
+    const int4* __restrict__ src, int4* __restrict__ dst, int W, int L, int tpr,
+    int4* __restrict__ sums) {
+  __shared__ int3 scan[32];
+  const int64_t r = blockIdx.x / tpr;
+  const int o = ((int)(blockIdx.x - r * tpr) * PASS_BLOCK + threadIdx.x) * MERGE_SPAN;
+  int3 c = make_int3(0, 0, 0);
+  if (o < W) {
+    const int4* row = src + r * W;
+    int4* out = dst + r * W;
+    const int ps = o & ~(2 * L - 1);  // < 2^31: L < W <= 2^30
+    const int la = min(L, W - ps), lb = max(0, min(L, W - ps - L));
+    Cand prev = virtual_cand();
+    merge_span<kCount>(
+        o - ps, min(MERGE_SPAN, W - o), la, lb, [&](int k) { return cell(row[ps + k]); },
+        [&](int k) { return cell(row[ps + L + k]); },
+        [&](int p, const Cand& x) {
+          out[ps + p] = make_int4(x.s, x.t, x.d, 0);
+          if (kCount) {
+            c = add3(c, keep_counts<kFused>(x, prev, ps + p > 0));
+            prev = x;
+          }
+        },
+        &prev);
+  }
+  if (kCount) {
+    int3 tot;
+    block_scan3(c, scan, &tot);
+    if (threadIdx.x == 0) sums[blockIdx.x] = make_int4(tot.x, tot.y, tot.z, 0);
+  }
 }
 
-// 16 < W = wa + wb <= 8192 and 1 <= m_keep <= W are checked by the caller.
+// The epilogue's placement, MERGE_SPAN sorted candidates a thread: the
+// row's sums before this block and in all, then a block scan of the kept
+// candidates.
+template <bool kFused>
+__global__ void __launch_bounds__(PASS_BLOCK) sort_slots_row_place_kernel(
+    const int4* __restrict__ sorted, int W, int tpr, const int4* __restrict__ sums,
+    int32_t* __restrict__ o_s, int32_t* __restrict__ o_d, int32_t* __restrict__ o_t,
+    int32_t* __restrict__ n_live, int64_t row0, int m_keep) {
+  __shared__ int3 scan[32];
+  const int64_t r = blockIdx.x / tpr;
+  const int t = (int)(blockIdx.x - r * tpr);
+  const int o = (t * PASS_BLOCK + threadIdx.x) * MERGE_SPAN;
+  int3 before = make_int3(0, 0, 0), all = make_int3(0, 0, 0);
+  for (int k = threadIdx.x; k < tpr; k += PASS_BLOCK) {
+    const int4 v = sums[r * tpr + k];
+    const int3 v3 = make_int3(v.x, v.y, v.z);
+    all = add3(all, v3);
+    if (k < t) before = add3(before, v3);
+  }
+  block_scan3(before, scan, &before);
+  block_scan3(all, scan, &all);
+  const int above = all.y, n_blank = W - all.x;
+  const int4* row = sorted + r * W;
+  Cand x[MERGE_SPAN];
+  Cand prev = o > 0 && o < W ? cell(row[o - 1]) : virtual_cand();
+  int3 c = make_int3(0, 0, 0);
+  unsigned kept = 0;
+#pragma unroll
+  for (int k = 0; k < MERGE_SPAN; ++k) {
+    if (o + k >= W) break;
+    x[k] = cell(row[o + k]);
+    const int3 v = keep_counts<kFused>(x[k], prev, o + k > 0);
+    kept |= (unsigned)v.x << k;
+    c = add3(c, v);
+    prev = x[k];
+  }
+  int3 tot;
+  const int3 incl = block_scan3(c, scan, &tot);
+  const int64_t ob = (row0 + r) * m_keep;
+  int rank = before.x + incl.x - c.x;  // the kept rank of this thread's first kept slot
+#pragma unroll
+  for (int k = 0; k < MERGE_SPAN; ++k) {
+    const int q = o + k;
+    if (q >= W) break;
+    if (kept >> k & 1u) {
+      const int pos = rank < above ? rank : rank + n_blank;
+      if (pos < m_keep) put_slot<kFused>(o_s, o_d, o_t, ob + pos, x[k]);
+      ++rank;
+    }
+    if (q >= above && q < above + n_blank && q < m_keep) {
+      o_s[ob + q] = NEG_INF;
+      o_d[ob + q] = 0;
+      o_t[ob + q] = 0;
+    }
+  }
+  if (o == 0) n_live[row0 + r] = all.z;
+}
+
+template <bool kFused>
+static int launch_rows(const RowArgs& g, int64_t N, int T, int4* scratch, int64_t chunk_rows,
+                       cudaStream_t s) {
+  const int W = g.wa + g.wb;
+  const int ntiles = (W + T - 1) / T;
+  const int threads = T >= 4096 ? 1024 : T / 4;
+  const size_t smem = 2 * (size_t)T * sizeof(Cand) + 32 * sizeof(int3);
+  auto tile = sort_slots_row_tile_kernel<kFused>;
+  // The largest shared memory granted so far, per device: raised when a
+  // call needs more, not set again on every call.
+  static int granted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || (int)smem > granted[dev]) {
+    e = cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) granted[dev] = (int)smem;
+  }
+  if (ntiles == 1) chunk_rows = 1 << 30;  // no scratch: only the grid bounds a launch
+  const int tpr = (W + PASS_BLOCK * MERGE_SPAN - 1) / (PASS_BLOCK * MERGE_SPAN);
+  int4* run0 = scratch;
+  int4* run1 = ntiles > 1 ? scratch + chunk_rows * W : nullptr;
+  int4* sums = ntiles > 1 ? scratch + 2 * chunk_rows * W : nullptr;
+  for (int64_t r0 = 0; r0 < N; r0 += chunk_rows) {
+    const int64_t n = N - r0 < chunk_rows ? N - r0 : chunk_rows;
+    tile<<<(unsigned int)(n * ntiles), threads, smem, s>>>(g, r0, T, ntiles, run0);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (ntiles == 1) continue;
+    const unsigned int grid = (unsigned int)(n * tpr);
+    int4 *src = run0, *dst = run1;
+    for (int L = T; L < W; L <<= 1) {
+      if (2 * L < W)
+        sort_slots_row_merge_kernel<kFused, false><<<grid, PASS_BLOCK, 0, s>>>(src, dst, W, L, tpr, sums);
+      else
+        sort_slots_row_merge_kernel<kFused, true><<<grid, PASS_BLOCK, 0, s>>>(src, dst, W, L, tpr, sums);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      int4* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+    sort_slots_row_place_kernel<kFused><<<grid, PASS_BLOCK, 0, s>>>(src, W, tpr, sums, g.o_s, g.o_d,
+                                                                   g.o_t, g.n_live, r0, g.m_keep);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// 16 < W = wa + wb <= 256 and 1 <= m_keep <= W are checked by the caller.
 extern "C" int sort_slots_wide(const int32_t* a_s, const int32_t* a_d,
                                const int32_t* a_t, int wa, const int32_t* b_s,
                                const int32_t* b_d, const int32_t* b_t, int wb,
                                const int32_t* rmv_vc, int D, int32_t* o_s,
                                int32_t* o_d, int32_t* o_t, int32_t* n_live,
                                int64_t N, int m_keep, void* stream) {
-  const int P = next_pow2(wa + wb, 32);
-  if (P > BLOCK_SMEM_MAX_P) return (int)cudaErrorInvalidValue;
+  int P = 32;
+  while (P < wa + wb) P <<= 1;
   cudaStream_t s = (cudaStream_t)stream;
 #define WARP_ARGS a_s, a_d, a_t, wa, b_s, b_d, b_t, wb, rmv_vc, D, o_s, o_d, o_t, n_live, N, m_keep, s
   switch (P) {
@@ -796,42 +1127,31 @@ extern "C" int sort_slots_wide(const int32_t* a_s, const int32_t* a_d,
     case 64: return launch_warp_p<64>(WARP_ARGS);
     case 128: return launch_warp_p<128>(WARP_ARGS);
     case 256: return launch_warp_p<256>(WARP_ARGS);
-    default: break;
+    default: return (int)cudaErrorInvalidValue;
   }
-  const int threads = P / 8 < 1024 ? P / 8 : 1024;
-  const size_t smem = (size_t)P * sizeof(Slot) + 32 * sizeof(int3);
-  cudaError_t e = cudaFuncSetAttribute(
-      sort_slots_block_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  sort_slots_block_kernel<false><<<(unsigned int)N, threads, smem, s>>>(
-      a_s, a_d, a_t, wa, b_s, b_d, b_t, wb, rmv_vc, D, o_s, o_d, o_t, n_live, 0, m_keep, P,
-      nullptr);
-  return (int)cudaGetLastError();
 }
 
-// 8192 < W = wa + wb <= 2^30 and 1 <= m_keep <= W are checked by the
-// caller, which passes a scratch of chunk_rows x next_pow2(W) Slots.
-extern "C" int sort_slots_global(const int32_t* a_s, const int32_t* a_d,
-                                 const int32_t* a_t, int wa, const int32_t* b_s,
-                                 const int32_t* b_d, const int32_t* b_t, int wb,
-                                 const int32_t* rmv_vc, int D, int32_t* o_s,
-                                 int32_t* o_d, int32_t* o_t, int32_t* n_live,
-                                 int64_t N, int m_keep, void* scratch,
-                                 int64_t chunk_rows, void* stream) {
-  const int P = next_pow2(wa + wb, 32);
+// 256 < W = wa + wb <= 2^30 and 1 <= m_keep <= W are checked by the
+// caller, which picks the tile T (a power of two, 128 <= T <=
+// ROW_TILE_MAX) and, when W > T, passes a scratch of chunk_rows x (2W +
+// ceil(W / (PASS_BLOCK x MERGE_SPAN))) 16-byte cells; rows go in chunks of
+// chunk_rows.
+extern "C" int sort_slots_rows(const int32_t* a_s, const int32_t* a_d,
+                               const int32_t* a_t, int wa, const int32_t* b_s,
+                               const int32_t* b_d, const int32_t* b_t, int wb,
+                               const int32_t* rmv_vc, int D, int32_t* o_s,
+                               int32_t* o_d, int32_t* o_t, int32_t* n_live,
+                               int64_t N, int m_keep, int tile, void* scratch,
+                               int64_t chunk_rows, void* stream) {
+  if (tile < 128 || tile > ROW_TILE_MAX || (tile & (tile - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (wa + wb > tile && (scratch == nullptr || chunk_rows < 1)) return (int)cudaErrorInvalidValue;
+  const RowArgs g = {a_s, a_d, a_t, wa, b_s, b_d, b_t, wb, rmv_vc, D, o_s, o_d, o_t, n_live, m_keep};
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = 32 * sizeof(int3);
-  for (int64_t r0 = 0; r0 < N; r0 += chunk_rows) {
-    const int64_t n = N - r0 < chunk_rows ? N - r0 : chunk_rows;
-    sort_slots_block_kernel<true><<<(unsigned int)n, 1024, smem, s>>>(
-        a_s, a_d, a_t, wa, b_s, b_d, b_t, wb, rmv_vc, D, o_s, o_d, o_t, n_live, r0, m_keep,
-        P, reinterpret_cast<Slot*>(scratch));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  int4* cells = reinterpret_cast<int4*>(scratch);
+  return rmv_vc != nullptr ? launch_rows<true>(g, N, tile, cells, chunk_rows, s)
+                           : launch_rows<false>(g, N, tile, cells, chunk_rows, s);
 }
-
 // W = wa + wb <= 16 and 1 <= m_keep <= W are checked by the caller.
 extern "C" int sort_slots(const int32_t* a_s, const int32_t* a_d,
                           const int32_t* a_t, int wa, const int32_t* b_s,

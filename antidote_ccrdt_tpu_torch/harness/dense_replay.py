@@ -91,9 +91,23 @@ class DenseReplay:
 
     # -- local application -------------------------------------------------
 
-    def apply(self, ops: Any) -> Any:
+    def apply(self, ops: Any, report_drops: bool = False) -> Any:
         """Apply one op batch (replica r's ops in row r) locally at every
-        replica in one call; collects the generated extras."""
+        replica in one call; collects the generated extras.
+
+        `report_drops` counts the ops the engine will drop silently
+        (``utils.validate.topk_rmv_drop_report``) into this replay's
+        metrics, padding apart from genuine out-of-range garbage: wire an
+        alarm on ``ops_dropped_out_of_range`` to catch a corrupted feed."""
+        if report_drops and hasattr(ops, "rmv_vc"):
+            from ..utils.validate import topk_rmv_drop_report
+
+            rep = topk_rmv_drop_report(self.dense, self.state, ops)
+            self.metrics.count(
+                "ops_dropped_out_of_range",
+                rep["add_dropped_out_of_range"] + rep["rmv_dropped_out_of_range"],
+            )
+            self.metrics.count("ops_padding", rep["add_padding"] + rep["rmv_padding"])
         with self.metrics.timer("apply"):
             kwargs = getattr(self.dense, "replication_extras_kwargs", {})
             self.state, extras = self.dense.apply_ops(self.state, ops, **kwargs)

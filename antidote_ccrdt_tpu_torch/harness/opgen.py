@@ -1,6 +1,10 @@
-"""Synthetic topk_rmv effect-op batches for the dense engine (port of
-``antidote_ccrdt_tpu/harness/opgen.py``: ``Workload``, ``_draw_ids``,
-``TopkRmvEffectGen``).
+"""Synthetic workloads (port of ``antidote_ccrdt_tpu/harness/opgen.py``:
+``Workload``, ``_draw_ids``, ``prepare_stream``, ``TopkRmvEffectGen``).
+
+* `prepare_stream`: prepare ops (("add", (id, score)) / ("rmv", id)) to be
+  run through each type's `downstream` at an origin replica.
+* `TopkRmvEffectGen`: pre-stamped topk_rmv effect-op batches for the
+  dense engine.
 
 The draws are the JAX generator's, call for call, from the same numpy
 ``default_rng(seed)``: both packages produce the same ops for one seed.
@@ -10,6 +14,7 @@ Only the last step differs — the arrays become tensors on a device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +40,20 @@ def _draw_ids(rng: np.random.Generator, wl: Workload, n: int) -> np.ndarray:
     # Zipf over the id space: rejection-free via truncated zipf mod n_ids.
     raw = rng.zipf(wl.zipf_a, size=n)
     return ((raw - 1) % wl.n_ids).astype(np.int32)
+
+
+def prepare_stream(wl: Workload, n_ops: int) -> Iterator[Tuple[int, tuple]]:
+    """Yield (origin_replica, prepare_op) pairs."""
+    rng = np.random.default_rng(wl.seed)
+    origins = rng.integers(0, wl.n_replicas, size=n_ops)
+    ids = _draw_ids(rng, wl, n_ops)
+    scores = rng.integers(1, wl.score_max, size=n_ops)
+    rmv = rng.random(n_ops) < wl.rmv_frac
+    for j in range(n_ops):
+        if rmv[j]:
+            yield int(origins[j]), (wl.rmv_kind, int(ids[j]))
+        else:
+            yield int(origins[j]), ("add", (int(ids[j]), int(scores[j])))
 
 
 class TopkRmvEffectGen:

@@ -1,8 +1,8 @@
 """Wrappers of the hand-written CUDA kernels K1 (``scatter_max_rows_``, in
 place), K1c (``scatter_max_rows_copy``, out of place: the main path's
 tombstone update) and K3 (``sort_slots``: a thread a row up to 8
-candidates, a warp a row up to 256, a block a row above), with their
-plain PyTorch versions.
+candidates, a warp a row up to 256, tiles of a row over many blocks
+above), with their plain PyTorch versions.
 
 A wrapper checks device, dtype, shape and contiguity and raises on what it
 does not take. For CUDA tensors it launches its kernel (built from
@@ -29,14 +29,18 @@ I32 = torch.int32
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 MAX_SLOTS = 16  # the widest row counted in ``sort_slots.launches``
-WARP_MAX_SLOTS = 256  # the widest row a warp owns; wider ones (to WIDE_MAX_SLOTS) take a block
-WIDE_MAX_SLOTS = 8192  # the widest row whose candidates fit one block's shared memory
+WARP_MAX_SLOTS = 256  # the widest row a warp owns; wider ones take the row paths
+WIDE_MAX_SLOTS = 8192  # the widest row counted in ``sort_slots.block_launches``
 GLOBAL_MAX_SLOTS = 1 << 30  # the widest row K3's int32 in-row indices address
-GLOBAL_SCRATCH_BYTES = 1 << 28  # device scratch of one chunk of rows wider than WIDE_MAX_SLOTS
+GLOBAL_SCRATCH_BYTES = 1 << 28  # device scratch of one chunk of rows wider than one tile
+ROW_TILE_MAX = 8192  # the widest tile of K3's row paths (two tiles of 12-byte candidates in shared memory)
+ROW_TILE = 4096  # the tile of a row wider than ROW_TILE_MAX
+ROW_SPAN = 1024  # sorted candidates a block of the row paths' merge and place kernels (epilogue sums each)
 
 
-def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for a ``c_void_p`` argument (None: NULL)."""
+    return t.data_ptr() if t is not None else None
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int]) -> None:
@@ -193,14 +197,14 @@ def sort_slots(
     followed by side b's w_b (W = w_a + w_b). On a card, rows of W <=
     MAX_SLOTS count in ``launches`` (a thread a row up to 8, a half-warp
     up to 16), wider rows up to WIDE_MAX_SLOTS in ``wide_launches`` (a
-    warp a row up to WARP_MAX_SLOTS = 256, a block above, the row in
-    shared memory; the block path's launches also count in
-    ``block_launches``), and
-    wider rows up to GLOBAL_MAX_SLOTS in ``global_launches`` (a block a
-    row, the row in a device scratch of at most GLOBAL_SCRATCH_BYTES per
-    chunk of rows); the plain version takes any W. With `rmv_vc`
-    i32[..., D] the add-wins filter ``ts >
-    dom_lookup(dc, rmv_vc)`` runs first and filtered candidates rank
+    warp a row up to WARP_MAX_SLOTS = 256; above, the row paths, whose
+    launches up to WIDE_MAX_SLOTS also count in ``block_launches``), and
+    wider rows up to GLOBAL_MAX_SLOTS in ``global_launches``. The row
+    paths cut a row into tiles of ``row_tile(W)`` candidates, many
+    blocks a row; a row wider than its tile is merged through a device
+    scratch of at most GLOBAL_SCRATCH_BYTES per chunk of rows. The plain
+    version takes any W. With `rmv_vc` i32[..., D] the add-wins filter
+    ``ts > dom_lookup(dc, rmv_vc)`` runs first and filtered candidates rank
     after every live one: for two sides that each keep the slot
     invariant this is the union join (``_join_slots_union``); without
     it, ``sort_slots_pallas``.
@@ -219,9 +223,9 @@ def sort_slots(
     if W > GLOBAL_MAX_SLOTS:
         raise ValueError(f"the CUDA kernel takes W <= {GLOBAL_MAX_SLOTS} candidates per row, not {W}")
     dev = flat[0].device
-    o_s = torch.empty(lead + (m_keep,), dtype=I32, device=dev)
-    o_d = torch.empty_like(o_s)
-    o_t = torch.empty_like(o_s)
+    # One allocation for the three slot outputs (disjoint contiguous views):
+    # allocations are most of the wrapper's host time on a short call.
+    o_s, o_d, o_t = torch.empty((3,) + lead + (m_keep,), dtype=I32, device=dev).unbind(0)
     n_live = torch.empty(lead, dtype=I32, device=dev)
     N = n_live.numel()
     if N == 0:
@@ -238,23 +242,40 @@ def sort_slots(
         N, m_keep,
     ]
     stream = ctypes.c_void_p(cuda_stream_handle(o_s))
-    if W <= WIDE_MAX_SLOTS:
+    if W <= WARP_MAX_SLOTS:
         symbol, counter = ("sort_slots", "launches") if W <= MAX_SLOTS else ("sort_slots_wide", "wide_launches")
         rc = _build.load("sort_slots", _K3_ARGS + [ctypes.c_void_p], symbol)(*args, stream)
     else:
-        # One row of P = next_pow2(W) 16-byte slots per block; rows in
-        # chunks whose scratch stays within GLOBAL_SCRATCH_BYTES.
-        symbol, counter = "sort_slots_global", "global_launches"
-        row_bytes = 16 << (W - 1).bit_length()
-        chunk = max(1, min(N, GLOBAL_SCRATCH_BYTES // row_bytes))
-        scratch = torch.empty(chunk * row_bytes, dtype=torch.uint8, device=dev)
-        fn = _build.load("sort_slots", _K3_ARGS + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p], symbol)
-        rc = fn(*args, _ptr(scratch), chunk, stream)
+        # The row paths: tiles of T candidates; a row wider than one tile
+        # is merged through a scratch of 2W + ceil(W / ROW_SPAN) 16-byte
+        # cells, rows in chunks whose scratch stays within
+        # GLOBAL_SCRATCH_BYTES.
+        symbol = "sort_slots_rows"
+        counter = "block_launches" if W <= WIDE_MAX_SLOTS else "global_launches"
+        tile = row_tile(W)
+        scratch, chunk = None, N
+        if W > tile:
+            row_bytes = 16 * (2 * W + -(-W // ROW_SPAN))
+            chunk = max(1, min(N, GLOBAL_SCRATCH_BYTES // row_bytes))
+            scratch = torch.empty(chunk * row_bytes, dtype=torch.uint8, device=dev)
+        fn = _build.load("sort_slots", _K3_ARGS + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+                         symbol)
+        rc = fn(*args, tile, _ptr(scratch), chunk, stream)
     _build.check(rc, symbol)
     setattr(sort_slots, counter, getattr(sort_slots, counter) + 1)
     if WARP_MAX_SLOTS < W <= WIDE_MAX_SLOTS:
-        sort_slots.block_launches += 1
+        sort_slots.wide_launches += 1
     return o_s, o_d, o_t, n_live
+
+
+def row_tile(W: int) -> int:
+    """The tile T of K3's row paths (W > WARP_MAX_SLOTS) for rows of W
+    candidates: the whole row, padded to a power of
+    two, while it fits one block's shared memory (one launch, no
+    scratch), else ROW_TILE candidates: the fastest choices at
+    chip_smoke.py phase 8's calls (``utils/time_k3.py --tiles``)."""
+    P = 1 << (W - 1).bit_length()
+    return P if P <= ROW_TILE_MAX else ROW_TILE
 
 
 sort_slots.launches = 0
@@ -267,7 +288,7 @@ _K3_ARGS = (
     + [ctypes.c_void_p, ctypes.c_int]  # rmv_vc, D
     + [ctypes.c_void_p] * 4  # outputs
     + [ctypes.c_int64, ctypes.c_int]  # N, m_keep
-)  # then the stream; sort_slots_global takes scratch and chunk rows before it
+)  # then the stream; sort_slots_rows takes the tile, scratch and chunk rows before it
 
 
 def _slot_order(live, s, t, d):

@@ -1,5 +1,5 @@
-"""Counters and latency recorders (port of
-``antidote_ccrdt_tpu/utils/metrics.py`` without its JAX profiler hooks).
+"""Counters, latency recorders and profiler hooks (port of
+``antidote_ccrdt_tpu/utils/metrics.py``).
 
     m = Metrics()
     with m.timer("sync"):
@@ -115,3 +115,32 @@ class Metrics:
             rec.samples = samples
             out[name] = rec.summary()
         return out
+
+
+# --- profiler hooks ---------------------------------------------------------
+
+
+@contextlib.contextmanager
+def device_trace(name: str) -> Iterator[None]:
+    """Annotate a region so that it appears as a named span in profiler
+    traces (``torch.profiler.record_function``; next to nothing when no
+    trace is being captured)."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def profile(log_dir: str) -> Iterator[None]:
+    """Capture a full torch.profiler trace of the enclosed region (the
+    host, and the card where there is one), written to `log_dir` in the
+    TensorBoard trace format."""
+    import torch
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -38,10 +38,14 @@ Phases, each printing one line (any failure exits non-zero):
    CPU; both K3 paths must have launched;
 8. wide rows: ``batch_merge("topk_rmv", states)`` whose capacity M = 8 400
    (> 8 192, so the converter's call at W = M and the fold's at W = 2M take
-   K3's global-scratch path) against the host set join, and that path held
+   K3's global path) against the host set join, and that path held
    against its plain version on the converter's and the first fold level's
-   inputs; then the same at M = 2 000, where both calls take K3's block
-   path (256 < W <= 8 192, the row in shared memory);
+   full inputs; then the same at M = 2 000, where both calls take K3's
+   block path (256 < W <= 8 192); then the block path at 65 536 rows of
+   W = 512 (a fold at M = 256), held likewise. Each call timed (CUDA events,
+   and on the device every kernel of K3's chain per call) beside the plain
+   version and its bound as the inputs need it (W comparisons a row of two
+   sorted runs, W log2 W a row to sort, each byte moved once);
 9. coalesced replay: ``DenseReplay.apply_coalesced`` of 4 batches at the
    main path's shapes (whole-log compaction of 139 264 ops per replica,
    then one apply that must launch K1c, K2 and K3), the coalesce and the
@@ -181,31 +185,11 @@ def held_against_plain(torch, checks: dict):
 
 
 def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time per launch of the CUDA kernel named `kernel` inside
-    `fn`, from torch.profiler (launch and host time excluded), over the
-    launches the profiler recorded. torch.profiler drops kernel records
-    now and then, at times all of a session's: a session that recorded
-    none is run again, up to three times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Mean device time per call of `fn` of the CUDA kernels matching
+    `kernel`, every kernel of the call summed (``utils/time_k3.py``)."""
+    from antidote_ccrdt_tpu_torch.utils import time_k3
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and re.search(rf"\b{kernel}\b", e.key)]
-        us, calls = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
-        if us > 0:
-            break
-    else:
-        raise AssertionError(f"the profiler saw no device time of {kernel} in three sessions")
-    if calls != reps:
-        print(f"[device times] note: the profiler recorded {calls} of {reps} launches of {kernel}", flush=True)
-    return us / 1e3 / calls
+    return time_k3.device_ms(torch, fn, reps, kernel)
 
 
 def phase_device(torch):
@@ -245,6 +229,7 @@ def phase_kernels(torch):
     from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place, delta_place_plain
     from antidote_ccrdt_tpu_torch.ops.dense_table import NEG_INF
     from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms
+    from antidote_ccrdt_tpu_torch.utils.time_k3 import canonical_sides
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -354,16 +339,7 @@ def phase_kernels(torch):
     # K3: [32, 1, 100k] rows of 2 x 4 candidates against rmv_vc
     # [32, 1, 100k, 32], fused and unfused. Each side is a canonical slot
     # list (sorted, dup-free), as the state and the delta table are.
-    lead = (R, 1, I)
-
-    def side():
-        ts = torch.where(ri(0, 4, lead + (M,)) == 0, 0, ri(1, 1 << 20, lead + (M,)))
-        sc = torch.where(ts > 0, ri(1, 100_000, lead + (M,)), NEG_INF).to(torch.int32)
-        dc = torch.where(ts > 0, ri(0, D, lead + (M,)), 0).to(torch.int32)
-        return kernels.sort_slots_plain([(sc, dc, ts.to(torch.int32))], M)[:3]
-
-    sides = [side(), side()]
-    rmv_vc = ri(0, 1 << 20, lead + (D,))
+    sides, rmv_vc = canonical_sides(torch, kernels, g, (R, 1, I), M, D)
     n = R * I
     packed = torch.cat([s[0].long() * 2**32 + s[2].long() for s in sides], dim=-1)
     for fused in (True, False):
@@ -667,16 +643,54 @@ def phase_batch_merge(torch, card: str, dev: str = "cuda"):
     return launches, wide, dict(narrow, library_ms=None)
 
 
-def phase_wide_rows(torch, card: str, m: int, counter: str, kernel: str, dev: str = "cuda"):
+def two_run_rows(torch, sides, rmv_vc):
+    """Per row: whether every side's survivors (fused, the candidates that
+    pass the add-wins filter; unfused, all) are already in K3's order, so
+    that the row is two sorted runs to merge, not a row to sort."""
+    from antidote_ccrdt_tpu_torch.ops.kernels import dom_lookup
+
+    ok = None
+    for s, d, t in sides:
+        alive = t > dom_lookup(d, rmv_vc) if rmv_vc is not None else torch.ones_like(t, dtype=torch.bool)
+        perm = torch.sort((~alive).to(torch.int8), dim=-1, stable=True).indices  # survivors first, in order
+        s, d, t, alive = (torch.gather(x, -1, perm) for x in (s, d, t, alive))
+        better = (s[..., 1:] > s[..., :-1]) | ((s[..., 1:] == s[..., :-1]) & (
+            (t[..., 1:] > t[..., :-1]) | ((t[..., 1:] == t[..., :-1]) & (d[..., 1:] < d[..., :-1]))))
+        side_ok = ~(better & alive[..., 1:]).any(-1)
+        ok = side_ok if ok is None else ok & side_ok
+    return ok
+
+
+def k3_bound(torch, sides, rmv_vc, m_keep: int):
+    """K3's bound on a call, as its inputs need it: each input byte read
+    once (the slots, and fused the tombstone rows), each output byte
+    written once; W comparisons (of three int32 keys each) a row of two
+    sorted runs and W ceil(log2 W) a row to sort. Also the earlier
+    yardstick, the bitonic network over the row padded to a power of two,
+    for the record."""
+    W = sum(side[0].shape[-1] for side in sides)
+    rows = sides[0][0][..., 0].numel()
+    n_bytes = rows * 4 * (3 * W + (rmv_vc.shape[-1] if rmv_vc is not None else 0) + 3 * m_keep + 1)
+    merged = int(two_run_rows(torch, sides, rmv_vc).sum())
+    lg = (W - 1).bit_length()
+    b, by = bound_ms(n_bytes, 3 * (merged * W + (rows - merged) * W * lg))
+    bitonic = bound_ms(n_bytes, rows * (1 << (lg - 1)) * lg * (lg + 1) // 2 * 12)[0]
+    return b, by, dict(two_run_rows=merged, bitonic_bound_ms=bitonic)
+
+
+ROW_KERNELS = r"sort_slots_row_\w+"  # the row paths' chain, every kernel of a call
+
+
+def phase_wide_rows(torch, card: str, m: int, counter: str, dev: str = "cuda"):
     """batch_merge at capacity M = `m` (the converter's K3 call at W = m,
     the fold's at W = 2m), and the K3 path those calls take (its launches
-    in `counter`, its CUDA kernel `kernel`) against its plain version on
-    the converter's and the first fold level's inputs."""
+    in `counter`) against its plain version on the converter's and the
+    first fold level's full inputs, timed beside its bound."""
     from antidote_ccrdt_tpu_torch import batch_merge
     from antidote_ccrdt_tpu_torch.core import batch_merge as bm
     from antidote_ccrdt_tpu_torch.harness import scalar_states as ss
     from antidote_ccrdt_tpu_torch.ops import kernels
-    from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms, sync
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
 
     states = ss.topk_rmv_capacity_states(m)
     counters = ("launches", "wide_launches", "block_launches", "global_launches")
@@ -700,35 +714,58 @@ def phase_wide_rows(torch, card: str, m: int, counter: str, kernel: str, dev: st
     lhs = bm._tree_map(lambda x: x[:half], batch)
     rhs = bm._tree_map(lambda x: x[half:2 * half], batch)
     rmv = torch.maximum(lhs.rmv_vc, rhs.rmv_vc)
-    D = rmv.shape[-1]
     calls = {
-        "convert": ([(raw.slot_score, raw.slot_dc, raw.slot_ts)], None, raw.slot_ts.numel() // Mb, Mb),
-        "fold": ([(lhs.slot_score, lhs.slot_dc, lhs.slot_ts), (rhs.slot_score, rhs.slot_dc, rhs.slot_ts)],
-                 rmv, rmv.numel() // D, 2 * Mb),
+        "convert": ([(raw.slot_score, raw.slot_dc, raw.slot_ts)], None),
+        "fold": ([(lhs.slot_score, lhs.slot_dc, lhs.slot_ts), (rhs.slot_score, rhs.slot_dc, rhs.slot_ts)], rmv),
     }
-    out = {}
-    for label, (sides, vc, rows, W) in calls.items():
-        got = kernels.sort_slots(sides, Mb, rmv_vc=vc)
-        ref = kernels.sort_slots_plain(sides, Mb, vc)
-        sync()
-        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
-            raise AssertionError(f"K3's {counter} path ({label}, W = {W}) disagrees with its plain version")
-        # Bytes, or the bitonic network's compare-exchanges (about 12
-        # integer operations each) over the row padded to P = 2^k.
-        lg = (W - 1).bit_length()
-        b, by = bound_ms(rows * 4 * (3 * W + (D if vc is not None else 0) + 3 * Mb + 1),
-                         rows * (1 << (lg - 1)) * lg * (lg + 1) // 2 * 12)
-        out[label] = dict(W=W, rows=rows, max_abs_err=max_abs_err(got, ref),
-                          ms=cuda_time_ms(lambda: kernels.sort_slots(sides, Mb, rmv_vc=vc), reps=5, warmup=1),
-                          device_ms=device_ms(torch, lambda: kernels.sort_slots(sides, Mb, rmv_vc=vc), kernel, reps=5),
-                          plain_ms=cuda_time_ms(lambda: kernels.sort_slots_plain(sides, Mb, vc), reps=3, warmup=1),
-                          bound_ms=b, bound_by=by)
+    out = {label: k3_row_call(torch, kernels, sides, Mb, vc, f"{counter} path ({label})")
+           for label, (sides, vc) in calls.items()}
     log("wide rows", card=card, M=Mb, path=counter, states=len(states), ids=len(ids), call_s=call_s,
         launches=launches, **out)
     fold = out["fold"]
     row = dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), ms=fold["ms"], plain_ms=fold["plain_ms"],
                bound_ms=fold["bound_ms"], bound_by=fold["bound_by"], library_ms=None)
     return launches[counter], row
+
+
+def k3_row_call(torch, kernels, sides, m_keep, vc, what: str) -> dict:
+    """One K3 call on the row paths: held against the plain K3 on its full
+    inputs (``torch.equal``), then timed by CUDA events (mean of 5) and
+    on the device (every kernel of the chain, per call) beside the plain
+    version and its bound."""
+    from antidote_ccrdt_tpu_torch.utils.benchtime import cuda_time_ms, sync
+
+    got = kernels.sort_slots(sides, m_keep, rmv_vc=vc)
+    ref = kernels.sort_slots_plain(sides, m_keep, vc)
+    sync()
+    W = sum(side[0].shape[-1] for side in sides)
+    if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+        raise AssertionError(f"K3's {what} at W = {W} disagrees with its plain version")
+    b, by, extra = k3_bound(torch, sides, vc, m_keep)
+    rows = sides[0][0][..., 0].numel()
+    call = lambda: kernels.sort_slots(sides, m_keep, rmv_vc=vc)  # noqa: E731
+    return dict(W=W, rows=rows, tile=kernels.row_tile(W), max_abs_err=max_abs_err(got, ref),
+                ms=cuda_time_ms(call, reps=5, warmup=1),
+                device_ms=device_ms(torch, call, ROW_KERNELS, reps=5),
+                plain_ms=cuda_time_ms(lambda: kernels.sort_slots_plain(sides, m_keep, vc), reps=3, warmup=1),
+                bound_ms=b, bound_by=by, **extra)
+
+
+def phase_many_rows(torch, card: str):
+    """K3's block path where many rows fill the card: 65 536 rows of two
+    canonical 256-slot sides (W = 512) against D = 32 tombstones, fused (a
+    fold of two states of 65 536 ids at M = 256), held against the plain
+    K3 and timed."""
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.utils.time_k3 import MANY_D, MANY_M, MANY_ROWS, canonical_sides
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    sides, rmv = canonical_sides(torch, kernels, g, (MANY_ROWS,), MANY_M, MANY_D)
+    before = kernels.sort_slots.block_launches
+    out = k3_row_call(torch, kernels, sides, MANY_M, rmv, "block path (many rows)")
+    if kernels.sort_slots.block_launches <= before:
+        raise AssertionError("the many-row call did not take K3's block path")
+    log("many rows", card=card, **out)
 
 
 def phase_coalesced(torch, card: str, dev: str = "cuda"):
@@ -1018,9 +1055,10 @@ def main() -> int:
     launches["sort_slots_wide"] = bm_launches["sort_slots_wide"]
     launches["sort_slots_9_16"] = bm_launches["sort_slots"]  # the converter's call, W = M = 13
     launches["sort_slots_global"], rows["sort_slots_global"] = phase_wide_rows(
-        torch, card, WIDE_M, "global_launches", "sort_slots_block_kernel")
+        torch, card, WIDE_M, "global_launches")
     launches["sort_slots_block"], rows["sort_slots_block"] = phase_wide_rows(
-        torch, card, BLOCK_M, "block_launches", "sort_slots_block_kernel")
+        torch, card, BLOCK_M, "block_launches")
+    phase_many_rows(torch, card)
     topk_rmv = phase_coalesced(torch, card)
     phase_monoid(torch, card, topk_rmv)
     del topk_rmv

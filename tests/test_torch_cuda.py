@@ -337,6 +337,85 @@ def test_k3_wider_than_shared_memory_matches_plain_on_card(cuda, w, two_sides, f
         assert torch.equal(g.cpu(), x)
 
 
+def row_path_call(rng, W, N, kind, dev):
+    """K3's row-path inputs on the card: "canonical" (fused, two sides
+    that keep the slot invariant, side b repeating some of side a's
+    candidates, so that duplicates meet across the sides), "raw" (fused,
+    two sides of raw host-order candidates), "mixed" (fused, side a
+    canonical, side b raw), "unfused" (one raw side, the converter's
+    call) or "sorted" (unfused, two canonical sides). Scores include INT32_MIN and NEG_INF and dcs lie in [-1, D];
+    fused, a fifth of the rows have every candidate dead."""
+    D = 3
+    wa = W if kind == "unfused" else W // 2 + W % 7
+    raw = [tuple(torch.from_numpy(x).to(dev) for x in raw_slots(rng, (N, w), D)) for w in (wa, W - wa) if w]
+    if kind in ("canonical", "sorted"):
+        k = min(wa, W - wa) // 3
+        raw[1] = tuple(torch.cat([y[:, :k], x[:, k:]], -1) for x, y in zip(raw[1], raw[0]))
+    if kind in ("canonical", "mixed", "sorted"):
+        raw[0] = kernels.sort_slots_plain([raw[0]], wa)[:3]
+    if kind in ("canonical", "sorted"):
+        raw[1] = kernels.sort_slots_plain([raw[1]], W - wa)[:3]
+    if kind in ("unfused", "sorted"):
+        return raw, None
+    vc = rng.integers(0, 4, (N, D)).astype(np.int32)
+    vc[rng.random(N) < 0.2] = 1 << 30
+    return raw, torch.from_numpy(vc).to(dev)
+
+
+def assert_row_path(sides, m, rmv_vc, W):
+    """One K3 call on the card equals the plain K3 on the same card
+    inputs, and counts one launch in its W range only."""
+    counters = ("launches", "wide_launches", "block_launches", "global_launches")
+    before = {c: getattr(kernels.sort_slots, c) for c in counters}
+    got = kernels.sort_slots(sides, m, rmv_vc=rmv_vc)
+    want = kernels.sort_slots_plain(sides, m, rmv_vc)
+    torch.cuda.synchronize()
+    block = W <= kernels.WIDE_MAX_SLOTS
+    assert {c: getattr(kernels.sort_slots, c) - before[c] for c in counters} == {
+        "launches": 0, "wide_launches": int(block), "block_launches": int(block), "global_launches": int(not block)}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["canonical", "raw", "mixed", "unfused"])
+@pytest.mark.parametrize("N", [1, 12, 300])
+@pytest.mark.parametrize("W", [257, 511, 2000, 4000, 8192, 8193, 16_800, 40_000])
+def test_k3_row_paths_match_plain_on_card(cuda, W, N, kind):
+    # 256 < W: the tiles of a row over many blocks, merged when both sides
+    # are sorted runs and sorted otherwise; 300 rows is more than the
+    # card's SMs. m_keep cycles through 1, W / 2 and W over the cases.
+    k = ["canonical", "raw", "mixed", "unfused"].index(kind) + [1, 12, 300].index(N)
+    rng = np.random.default_rng(W + 7 * N + k)
+    sides, vc = row_path_call(rng, W, N, kind, cuda)
+    assert_row_path(sides, [1, W // 2, W][k % 3], vc, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["canonical", "raw", "unfused", "sorted"])
+@pytest.mark.parametrize("tile", [128, 512, 1024, kernels.ROW_TILE_MAX])
+@pytest.mark.parametrize("W", [257, 2000, 8193])
+def test_k3_row_paths_at_any_tile_on_card(cuda, monkeypatch, W, tile, kind):
+    # Whatever tile the wrapper picks, the row paths give the plain K3's
+    # rows: from one tile a row to 65 tiles and 7 merge passes.
+    rng = np.random.default_rng(3 * W + tile)
+    sides, vc = row_path_call(rng, W, 5, kind, cuda)
+    monkeypatch.setattr(kernels, "row_tile", lambda w: tile)
+    assert_row_path(sides, W - W // 3, vc, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2000, 16_800])
+def test_k3_row_paths_over_scratch_chunks_on_card(cuda, monkeypatch, W):
+    # Tiles of 128, and a scratch that holds three rows: 12 rows go in
+    # four chunks.
+    rng = np.random.default_rng(W)
+    sides, vc = row_path_call(rng, W, 12, "canonical", cuda)
+    monkeypatch.setattr(kernels, "row_tile", lambda w: 128)
+    monkeypatch.setattr(kernels, "GLOBAL_SCRATCH_BYTES", 3 * 16 * (2 * W + -(-W // kernels.ROW_SPAN)))
+    assert_row_path(sides, W // 2, vc, W)
+
+
 @pytest.mark.cuda
 def test_batch_merge_past_shared_memory_on_card(cuda):
     # M = 8400: the converter's K3 call at W = 8400 and the fold's at
