@@ -23,7 +23,16 @@ leaderboard, average and wordcount dense engines; whole-log op compaction
 (``ops/compaction.py``, ``ops/segment.py``), delta-state replication
 (``parallel/``) and the merge-law checker (``ops/laws.py``); the
 validation checks (``utils/validate.py``), metrics with profiler hooks
-and the timing helpers (``utils/``). The kernels: K1 and K1c (tombstone
+and the timing helpers (``utils/``); the durable host path: the
+flight-event log and span tracer (``obs/``), seeded fault points
+(``utils/faults.py``), the scalar replay host (``harness/replay.py``),
+partition digests and psnaps (``core/partition.py``, with the pager's
+spill names in ``core/pager.py``), the op journal and dense and
+partitioned checkpoints (``harness/checkpoint.py``), the write-ahead
+delta log and its recovery (``harness/wal.py``), and the bindings of the
+native C++ op log, causal scheduler and corpus tokenizer
+(``harness/native_host.py``, ``harness/native_tokenizer.py``; built
+from ``native/*.cpp`` with g++ at first use). The kernels: K1 and K1c (tombstone
 scatter-max), K2 (delta placement) and K3 (the slot sort, a path for
 each range of row widths) in ``csrc/``.
 """

@@ -9,6 +9,12 @@ library is missing or older than its source or a header, and returns its
 C function ``symbol`` (default ``name``) with its argument types
 declared. ``build_all()`` starts one nvcc per source at once.
 
+``load_host_library(name)`` does the same for the C++ host runtime that
+the package shares with the JAX package (``native/<name>.cpp``: the op
+log and causal scheduler, the corpus tokenizer): g++ with the flags of
+``native/Makefile`` into this package's ``build/``, never into
+``native/build/``.
+
 Nothing here runs when the package is imported: the CPU tests import every
 module on a machine without nvcc.
 """
@@ -27,6 +33,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("scatter_max_rows", "delta_place", "sort_slots")
+# The C++ host sources; CCRDT_NATIVE_DIR points an installed package at
+# a source tree, as it does for the JAX package.
+NATIVE_DIR = Path(os.environ.get("CCRDT_NATIVE_DIR", PKG_DIR.parent / "native"))
+HOST_CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -113,6 +123,29 @@ def load(name: str, argtypes: List[type], symbol: Optional[str] = None) -> ctype
             fn.restype = ctypes.c_int
             _fns[symbol] = fn
         return fn
+
+
+def load_host_library(name: str, extra_flags: Iterable[str] = ()) -> ctypes.CDLL:
+    """``native/<name>.cpp`` built with g++ into ``build/lib<name>.so``
+    (when missing or older than the source) and loaded. Raises
+    RuntimeError with the compiler's output when the build fails."""
+    src = NATIVE_DIR / f"{name}.cpp"
+    lib = BUILD_DIR / f"lib{name}.so"
+    with _lock:
+        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [shutil.which("g++") or "g++", *HOST_CXX_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"g++ could not run for native/{name}.cpp: {e}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"g++ failed for native/{name}.cpp (rc {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, lib)
+        return ctypes.CDLL(str(lib))
 
 
 def check(rc: int, what: str) -> None:

@@ -12,7 +12,8 @@ Phases, each printing one line (any failure exits non-zero):
    on a stride-0 broadcast view), K2 and K3 against their plain PyTorch
    versions on the card at the main path's shapes (``torch.equal``),
    timed with CUDA events beside their byte bound and one library call
-   computing the same function;
+   computing the same function; K1c also at the shapes of
+   ``benchmarks/micro_tombstone.py``'s ``pallas_bf16`` probe;
 4. main path: ``DenseReplay(make_dense("topk_rmv", ...), 32)`` for 8
    rounds of 32 768 adds + 2 048 removals per replica, a sync every 4
    rounds and an observe; every apply round must launch each of the main
@@ -66,7 +67,24 @@ Phases, each printing one line (any failure exits non-zero):
    registered fixtures on the card (the topk_rmv fixture's merges must
    launch K3, each call held against the plain K3) and catches the broken
    merge;
-11. the kernels line, then the ok line.
+11. durable host: ``scripts/end_to_end_demo.py``'s flow at the main
+   path's width (R = 32, 100 000 ids, M = 4, K = 100), 4 rounds: seeded
+   adds and removals (each removal carrying its origin's frontier) go
+   into the native C++ host, every replica drains its causal batch onto
+   the card, and the stacked round is applied (each round must launch
+   K1c, K2 and K3); every round is logged to an ``ElasticWal`` (group
+   durability, 8 partitions over 4 streams) and flushed, with a
+   checkpoint after round 2; the log is dropped without a close, and a
+   fresh one recovers the live state leaf for leaf and digest for digest
+   (K3 launched in the recovery, each call held against the plain K3);
+   the state after round 3 is repaired to the live one by the psnaps of
+   its divergent partitions, through the CCPT and dense-blob encodings,
+   and must equal their join; the 32 replica rows fold to a full top-K;
+   all backlogs drain. Then ``benchmarks/bench_all.py``'s
+   worddocumentcount corpus as raw strings through the native tokenizer
+   (replica 0 equal to the pure-Python path) onto the card;
+12. the kernels line (launches on each path that drives a kernel, phase
+   11's included), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -108,6 +126,16 @@ WIDE_M = 8_400
 BLOCK_M = 2_000
 # Batches per coalesced round: the rounds between two syncs in phase 4.
 COALESCE_K = 4
+# The durable host (scripts/end_to_end_demo.py's distributions at the
+# main path's width): adds U[512, 1024] and removals U[0, 64] per origin
+# and round; partitions of the WAL and the digests.
+DH_ADDS, DH_RMVS, DH_ROUNDS, DH_PARTS = 1_024, 64, 4, 8
+# benchmarks/bench_all.py's worddocumentcount corpus: replicas x documents
+# x words of a 50 000-word Zipf(1.1) vocabulary, 2^16 buckets.
+DOC_SHAPE, DOC_VOCAB, DOC_BUCKETS = (64, 512, 64), 50_000, 1 << 16
+# benchmarks/micro_tombstone.py's probe (pallas_bf16): removal rows per
+# replica.
+PROBE_BR = 1_024
 
 
 def log(phase: str, **kw) -> None:
@@ -182,6 +210,13 @@ def held_against_plain(torch, checks: dict):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+def require_launches(got: dict, names, what: str) -> None:
+    """Fail unless every wrapper in `names` launched in `got`'s run."""
+    missing = [n for n in names if got.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"{what} did not launch {missing}: {got}")
 
 
 def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
@@ -303,6 +338,25 @@ def phase_kernels(torch):
             rows_out["scatter_max_rows_copy"] = entry
         del got, want, before
 
+    # K1c at the shapes of benchmarks/micro_tombstone.py's pallas_bf16
+    # probe (the same function with bf16 planes): uniform rows.
+    prows = ri(0, I, (R, PROBE_BR))
+    pupd = ri(0, 100_000, (R, PROBE_BR, D))
+    got = kernels.scatter_max_rows_copy(table, prows, pupd)
+    want = kernels.scatter_max_rows_copy_plain(table, prows, pupd)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K1c scatter_max_rows_copy disagrees with its plain version at the probe's shapes")
+    pidx = (torch.arange(R, device=dev)[:, None] * I + prows.long()).reshape(-1, 1).expand(-1, D).contiguous()
+    psrc = pupd.reshape(-1, D)
+    b, by = bound_ms(2 * R * I * D * 4 + R * PROBE_BR * 4 + R * PROBE_BR * D * 4)
+    log("kernel K1c at pallas_bf16's shapes", rows=PROBE_BR, max_abs_err=max_abs_err([got], [want]),
+        ms=cuda_time_ms(lambda: kernels.scatter_max_rows_copy(table, prows, pupd)),
+        plain_ms=cuda_time_ms(lambda: kernels.scatter_max_rows_copy_plain(table, prows, pupd)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_time_ms(lambda: table.reshape(R * I, D).scatter_reduce(0, pidx, psrc, "amax")))
+    del got, want, pidx, psrc
+
     # K2: a real sorted add stream of the main path's first batch.
     eng = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=M)
     gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7))
@@ -417,8 +471,7 @@ def phase_main_path(torch, card: str):
     total_s = time.perf_counter() - t_all
     launches = {n: w.launches for n, w in wrappers.items()}
     for rnd, got in enumerate(per_round):
-        if min(got[n] for n in main_path) < 1:
-            raise AssertionError(f"apply round {rnd} did not launch every main-path kernel: {got}")
+        require_launches(got, main_path, f"apply round {rnd}")
     if tuple(obs.ids.shape) != (R, 1, K) or not bool(obs.valid.any()):
         raise AssertionError("empty or misshapen observable")
     if not rp.converged():
@@ -883,7 +936,7 @@ def phase_coalesced(torch, card: str, dev: str = "cuda"):
             if not np.array_equal(value, other):
                 raise AssertionError(f"coalesced round: CPU and card disagree on {name}")
     log("coalesced identity", replicas=r, ids=i, adds=b, rmvs=br, batches=COALESCE_K, bit_identical=True)
-    return dense, prev, rp.state
+    return (dense, prev, rp.state), launches
 
 
 def phase_monoid(torch, card: str, topk_rmv, dev: str = "cuda"):
@@ -1031,6 +1084,289 @@ def phase_monoid(torch, card: str, topk_rmv, dev: str = "cuda"):
         wordcount_chain_coalesced_equal=True, wordcount_delta_cells=int(whole["idx"].numel()),
         laws_ok=reports, topk_rmv_law_k3_launches=law_launches, topk_rmv_law_kernels_held=law_kernels,
         broken_merge={k: v["ok"] for k, v in broken.items()})
+    return {"sort_slots": law_launches}
+
+
+def phase_durable_host(torch, card: str, dev: str = "cuda") -> dict:
+    """The host path around the engine: native causal host, WAL,
+    crash recovery, psnap repair, reconcile; then the native tokenizer.
+    Every K1c, K2 and K3 call of the phase is held against its plain
+    version on its own inputs. Returns the phase's K1c, K2 and K3
+    launches."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.core import partition as pt
+    from antidote_ccrdt_tpu_torch.core import serial
+    from antidote_ccrdt_tpu_torch.harness import native_host as nh
+    from antidote_ccrdt_tpu_torch.harness import native_tokenizer as nt
+    from antidote_ccrdt_tpu_torch.harness.wal import ElasticWal
+    from antidote_ccrdt_tpu_torch.models import wordcount as wc
+    from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.parallel.delta import like_delta_for
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.metrics import Metrics
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    for lib in (nh, nt):
+        if not lib.available():
+            raise AssertionError(f"{lib.__name__} did not build: {lib.build_error()}")
+    wrappers = {"scatter_max_rows_copy": kernels.scatter_max_rows_copy, "delta_place": delta_place,
+                "sort_slots": kernels.sort_slots}
+
+    def counts():
+        return {n: w.launches for n, w in wrappers.items()}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    def row(state, x):
+        return type(state)(**{f.name: getattr(state, f.name)[x:x + 1] for f in dataclasses.fields(state)})
+
+    def ms_since(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    held = {}  # every call but the recovery's, held by running it again
+
+    def held_again(what, fn, want):
+        """`fn` run again with every kernel call held against its plain
+        version; it must give `want`. Its launches do not count."""
+        saved = counts()
+        with held_against_plain(torch, held):
+            got = fn()
+        for n, w in wrappers.items():
+            w.launches = saved[n]
+        if not same(got, want):
+            raise AssertionError(f"{what} run again under the plain check ends in another state")
+
+    def held_calls(checks, kernel):
+        return sum(v["calls"] for name, v in checks.items() if name.split()[0] == kernel)
+
+    r, ids, k, m, rounds = R, I, K, M, DH_ROUNDS
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    dense = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=k, slots_per_id=m, device=dev)
+    state = dense.init(r, 1)
+    # A replica drains every origin's ops, its own included: one round's
+    # worth with slack, as the demo sizes it.
+    cap_adds, cap_rmvs = 2 * r * DH_ADDS, 2 * r * DH_RMVS
+    frontiers = np.zeros((r, r), np.int32)  # max ts each origin has seen per DC
+    submitted = delivered = 0
+    t = {"drain_ms": [], "apply_ms": [], "log_step_ms": [], "flush_ms": []}
+    gc.collect()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    reset()
+    with nh.NativeHost(r) as host, tempfile.TemporaryDirectory() as tmp:
+        wal = ElasticWal(tmp, "w0", dense, "topk_rmv", partitions=DH_PARTS, durability="group")
+        for step in range(rounds):
+            for origin in range(r):
+                na, nr = int(rng.integers(DH_ADDS // 2, DH_ADDS + 1)), int(rng.integers(0, DH_RMVS + 1))
+                host.submit_batch(origin, np.full(na, nh.KIND_ADD, np.int32), np.zeros(na, np.int32),
+                                  rng.integers(0, ids, na), rng.integers(1, 10_000, na))
+                if nr:
+                    host.submit_batch(origin, np.full(nr, nh.KIND_RMV, np.int32), np.zeros(nr, np.int32),
+                                      rng.integers(0, ids, nr), vcs=np.repeat(frontiers[origin][None], nr, 0))
+                submitted += na + nr
+            t0 = time.perf_counter()
+            drained = [host.drain_topk_rmv_ops(x, cap_adds, cap_rmvs, device=dev) for x in range(r)]
+            ops = TopkRmvOps(*[torch.cat([getattr(d[0], f) for d in drained])
+                               for f in TopkRmvOps.__dataclass_fields__])
+            sync()
+            t["drain_ms"].append(ms_since(t0))
+            delivered += sum(na + nr for _, na, nr in drained)
+            dc_h, ts_h = ops.add_dc.cpu().numpy(), ops.add_ts.cpu().numpy()
+            live = ts_h > 0
+            np.maximum.at(frontiers, (np.nonzero(live)[0], dc_h[live]), ts_h[live])
+            before = counts()
+            prev = state
+            t0 = time.perf_counter()
+            state = dense.apply_ops(state, ops, collect_dominated=False)[0]
+            sync()
+            t["apply_ms"].append(ms_since(t0))
+            require_launches({n: c - before[n] for n, c in counts().items()}, wrappers, f"apply round {step}")
+            held_again(f"apply round {step}", lambda: dense.apply_ops(prev, ops, collect_dominated=False)[0], state)
+            t0 = time.perf_counter()
+            wal.log_step(step, list(range(r)), prev, state)
+            t["log_step_ms"].append(ms_since(t0))
+            t0 = time.perf_counter()
+            wal.flush()
+            t["flush_ms"].append(ms_since(t0))
+            if step == 1:
+                t0 = time.perf_counter()
+                wal.checkpoint(state, 1)
+                checkpoint_s = time.perf_counter() - t0
+            if step == rounds - 2:
+                lagging = state
+            del prev, ops, drained
+        backlogs = [host.backlog(x) for x in range(r)]
+        stats = host.stats()
+        if any(backlogs) or stats["pending"]:
+            raise AssertionError(f"backlogs left after the last round: {backlogs}, {stats}")
+        if delivered != submitted * r or stats["delivered"] != delivered:
+            raise AssertionError(f"delivered {delivered} ops ({stats}) for {submitted} submitted x {r} replicas")
+        files = [os.path.join(d, f) for d, _, fs in os.walk(tmp) for f in fs]
+        wal_bytes = sum(os.path.getsize(f) for f in files if f.endswith(".wal"))
+        ckpt_bytes = sum(os.path.getsize(f) for f in files if f.endswith(ElasticWal.SNAP))
+        pre_recover = counts()
+        del wal  # the crash: no close, no last flush
+
+        # A fresh log object on the same directory recovers the live state.
+        metrics = Metrics()
+        like = dense.init(r, 1)
+        reset()
+        held_recover = {}
+        sync()
+        t0 = time.perf_counter()
+        wal = ElasticWal(tmp, "w0", dense, "topk_rmv", metrics=metrics, partitions=DH_PARTS, durability="group")
+        with held_against_plain(torch, held_recover):
+            rec, last_step, owned = wal.recover(like)
+        sync()
+        recover_s = time.perf_counter() - t0
+        on_disk = sum(1 for st in wal.streams for _ in st.records())
+        wal.close()
+        del like
+    recovered = int(metrics.counters.get("wal.recovered_records", 0))
+    recover_k3 = kernels.sort_slots.launches
+    require_launches({"sort_slots": recover_k3}, ["sort_slots"], "recover")
+    # `recover` skips a record whose replay raises, a disagreeing K3
+    # included: every record the log holds must replay, through one K3
+    # call that held. Compaction keeps the active segment of each stream,
+    # so the log holds the two steps after the checkpoint and may hold
+    # earlier ones.
+    if (recovered != on_disk or on_disk < rounds - 2 or held_calls(held_recover, "K3") != recovered
+            or recover_k3 != recovered):
+        raise AssertionError(f"recovery replayed {recovered} of the {on_disk} records on disk, with {recover_k3} K3 "
+                             f"launches of which held against the plain K3: {held_recover}")
+    if rec is None or not same(rec, state) or last_step != rounds - 1 or owned != set(range(r)):
+        raise AssertionError(f"recovery: last_step {last_step}, records {recovered}, "
+                             f"equal {rec is not None and same(rec, state)}")
+    t0 = time.perf_counter()
+    live_vec = pt.state_digests(state, DH_PARTS)
+    digest_s = time.perf_counter() - t0
+    if not np.array_equal(pt.state_digests(rec, DH_PARTS), live_vec):
+        raise AssertionError("the recovered state's digests differ from the live state's")
+    del rec
+
+    # Anti-entropy: the lagging replica set repaired by psnaps of its
+    # divergent partitions, through the wire encodings.
+    div = pt.divergent_parts(pt.state_digests(lagging, DH_PARTS), live_vec)
+    if not div:
+        raise AssertionError("the state after round 3 has no divergent partition")
+    like_delta = like_delta_for(dense, state)
+    fixed, psnap_bytes, psnap_ms, psnaps = lagging, 0, [], []
+    for part in div:
+        sync()
+        t0 = time.perf_counter()
+        payload = serial.dumps_dense("topk_rmv_psnap", pt.restrict_psnap(dense, state, part, DH_PARTS))
+        blob = pt.encode_psnap_blob(last_step, part, payload)
+        _seq, got_part, back = pt.decode_psnap_blob(blob)
+        _name, psnap = serial.loads_dense(back, like_delta)
+        fixed = pt.apply_psnap(dense, fixed, psnap)
+        sync()
+        psnap_ms.append(ms_since(t0))
+        psnap_bytes += len(blob)
+        psnaps.append(psnap)
+        if got_part != part:
+            raise AssertionError(f"psnap blob of part {part} decoded as part {got_part}")
+
+    def repair():
+        out = lagging
+        for psnap in psnaps:
+            out = pt.apply_psnap(dense, out, psnap)
+        return out
+
+    held_again("the psnap repair", repair, fixed)
+    del psnaps
+    with held_against_plain(torch, held):
+        joined_state = dense.merge(lagging, state)
+    if not same(fixed, joined_state):
+        raise AssertionError("the psnap repair differs from merge(lagging, live)")
+    if not np.array_equal(pt.state_digests(fixed, DH_PARTS), live_vec):
+        raise AssertionError("the repaired state's digests differ from the live state's")
+    del fixed, lagging, joined_state
+
+    # Reconcile: fold the replica rows by the join; the joined top-K is full.
+    def reconcile():
+        out = row(state, 0)
+        for x in range(1, r):
+            out = dense.merge(out, row(state, x))
+        return out
+
+    sync()
+    t0 = time.perf_counter()
+    acc = reconcile()
+    sync()
+    reconcile_ms = ms_since(t0)
+    held_again("the reconcile fold", reconcile, acc)
+    joined = dense.value(acc)[0][0]
+    if len(joined) != k:
+        raise AssertionError(f"the joined top-K holds {len(joined)} entries, not {k}")
+    post = counts()
+    launches = {n: pre_recover[n] + post[n] for n in wrappers}
+    # Each launch of the phase was held: the recovery's as it ran, every
+    # other one by the same call again under the check.
+    calls = {n: held_calls(held, kern) + (held_calls(held_recover, kern) if kern == "K3" else 0)
+             for n, kern in (("scatter_max_rows_copy", "K1c"), ("delta_place", "K2"), ("sort_slots", "K3"))}
+    if calls != launches:
+        raise AssertionError(f"phase 11 launched {launches}, of which held against the plain versions {calls}")
+    peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9
+    del state, acc
+
+    # The tokenizer half: raw documents -> native tokenize, per-document
+    # dedup and FNV-1a -> the card.
+    n_rep, n_docs, n_words = DOC_SHAPE
+    rng = np.random.default_rng(0)
+    docs = [[" ".join(f"w{w}" for w in line) for line in (rng.zipf(1.1, size=(n_docs, n_words)) - 1) % DOC_VOCAB]
+            for _ in range(n_rep)]
+    tok = nt.NativeTokenizer(DOC_BUCKETS)
+    t0 = time.perf_counter()
+    enc = [tok.encode_batch(per_r, per_document=True, threads=0) for per_r in docs]
+    encode_ms = ms_since(t0)
+    start = 0
+    for doc, end in zip(docs[0], enc[0][1].tolist()):
+        want = sorted(wc.hash_token(w, DOC_BUCKETS) for w in set(wc.tokenize(doc)))
+        if sorted(enc[0][0][start:end].tolist()) != want:
+            raise AssertionError(f"replica 0's encoding differs from the Python path at {doc[:40]!r}")
+        start = end
+    tokens = np.full((n_rep, max(len(e[0]) for e in enc)), -1, np.int32)
+    for x, (e, _) in enumerate(enc):
+        tokens[x, :len(e)] = e
+    eng = registry.make_dense("worddocumentcount", n_buckets=DOC_BUCKETS, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    doc_ops = wc.WordcountOps(key=torch.zeros(tokens.shape, dtype=torch.int32, device=dev),
+                              token=torch.from_numpy(tokens).to(dev))
+    doc_state, _ = eng.apply_ops(eng.init(n_rep, 1), doc_ops)
+    sync()
+    doc_apply_ms = ms_since(t0)
+    want = np.stack([np.bincount(e, minlength=DOC_BUCKETS) for e, _ in enc])
+    if not np.array_equal(doc_state.counts.cpu().numpy()[:, 0], want):
+        raise AssertionError("the worddocumentcount counts on the card differ from the encoded corpus")
+    raw_tokens = n_rep * n_docs * n_words
+
+    log("11 durable host", card=card, replicas=r, ids=ids, M=m, K=k, rounds=rounds,
+        submitted=submitted, delivered=delivered, **t,
+        wal_bytes=wal_bytes, checkpoint_bytes=ckpt_bytes, checkpoint_s=checkpoint_s, recover_s=recover_s,
+        records_on_disk=on_disk, records_recovered=recovered, recover_k3_held=held_recover, held_against_plain=held, digest_s=digest_s, state_bytes=sum(
+            x.numel() * x.element_size() for x in leaves(dense.init(r, 1))),
+        divergent_parts=div, psnap_count=len(div), psnap_bytes=psnap_bytes, psnap_apply_ms=psnap_ms,
+        reconcile_ms=reconcile_ms, joined_top_k=len(joined), peak_mem_gb=peak_gb, launches=launches,
+        tokenizer=dict(replicas=n_rep, documents=n_docs, words=n_words, raw_tokens=raw_tokens,
+                       encoded_tokens=int(sum(len(e) for e, _ in enc)), encode_ms=encode_ms,
+                       tokens_per_s=raw_tokens / (encode_ms / 1e3), apply_ms=doc_apply_ms),
+        phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def main() -> int:
@@ -1059,9 +1395,10 @@ def main() -> int:
     launches["sort_slots_block"], rows["sort_slots_block"] = phase_wide_rows(
         torch, card, BLOCK_M, "block_launches")
     phase_many_rows(torch, card)
-    topk_rmv = phase_coalesced(torch, card)
-    phase_monoid(torch, card, topk_rmv)
+    topk_rmv, coalesced = phase_coalesced(torch, card)
+    laws = phase_monoid(torch, card, topk_rmv)
     del topk_rmv
+    durable = phase_durable_host(torch, card)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -1080,8 +1417,19 @@ def main() -> int:
         "sort_slots_global": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
                               "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
     }
+    # `launches` is the count of the path that drives the kernel first
+    # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
+    # path's own count, each read from 0, is in `launches_by_path`.
+    first_path = {"sort_slots_9_16": "batch_merge (phase 7)", "sort_slots_wide": "batch_merge (phase 7)",
+                  "sort_slots_block": "wide rows (phase 8)", "sort_slots_global": "wide rows (phase 8)"}
+    by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in sources}
+    for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
+                      ("durable host (phase 11)", durable)):
+        for name, n in got.items():
+            by_path[name][path] = n
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rows[name])
+        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+             launches_by_path=by_path[name], **rows[name])
         for name, (src, rep) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

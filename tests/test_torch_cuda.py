@@ -556,3 +556,99 @@ def test_compact_effect_ops_on_card_matches_cpu(cuda, name):
     else:
         effects = [e for es in seeded_effects(name, 3, seed=4) for e in es]
     assert compact_effect_ops(name, effects, device=cuda) == compact_effect_ops(name, effects, device="cpu")
+
+
+# --- the durable host path on the card ----------------------------------------------
+
+
+def durable_run(device, root, steps=4, R=4, I=96, D=4, M=4, K=8):
+    """A seeded topk_rmv run on `device`, each step logged to an ElasticWal
+    under `root` (4 partitions, a checkpoint after step 1), the log then
+    dropped without a close; -> (engine, [state after each step])."""
+    from antidote_ccrdt_tpu_torch.harness.wal import ElasticWal
+
+    dense = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=M, device=device)
+    gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.1, score_max=300, seed=11), device=device)
+    wal = ElasticWal(str(root), "w0", dense, "topk_rmv", partitions=4, durability="group")
+    states = [dense.init(R, 1)]
+    for step in range(steps):
+        states.append(dense.apply_ops(states[-1], gen.next_batch(24, 4), collect_dominated=False)[0])
+        wal.log_step(step, list(range(R)), states[-2], states[-1])
+        wal.flush()
+        if step == 1:
+            wal.checkpoint(states[-1], step)
+    return dense, states
+
+
+def same_leaves(a, b):
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(leaves(a), leaves(b)))
+
+
+@pytest.mark.cuda
+def test_wal_recover_on_card_equals_cpu(cuda, tmp_path):
+    from antidote_ccrdt_tpu_torch.core import partition as pt
+    from antidote_ccrdt_tpu_torch.harness.wal import ElasticWal
+
+    out = {}
+    for name, device in (("cpu", "cpu"), ("card", cuda)):
+        dense, states = durable_run(device, tmp_path / name)
+        before = kernels.sort_slots.launches
+        wal = ElasticWal(str(tmp_path / name), "w0", dense, "topk_rmv", partitions=4)
+        rec, last_step, owned = wal.recover(dense.init(4, 1))
+        wal.close()
+        assert last_step == 3 and owned == {0, 1, 2, 3}
+        assert same_leaves(rec, states[-1])
+        if name == "card":
+            assert rec.slot_score.is_cuda and kernels.sort_slots.launches > before
+        out[name] = (rec, pt.state_digests(rec, 4))
+    assert same_leaves(out["cpu"][0], out["card"][0])
+    assert np.array_equal(out["cpu"][1], out["card"][1])
+
+
+@pytest.mark.cuda
+def test_psnap_repair_on_card_equals_cpu(cuda, tmp_path):
+    from antidote_ccrdt_tpu_torch.core import partition as pt
+    from antidote_ccrdt_tpu_torch.core import serial
+    from antidote_ccrdt_tpu_torch.parallel.delta import like_delta_for
+
+    out = {}
+    for name, device in (("cpu", "cpu"), ("card", cuda)):
+        dense, states = durable_run(device, tmp_path / name)
+        lagging, live = states[2], states[-1]
+        fixed, blobs = lagging, []
+        for part in pt.divergent_parts(pt.state_digests(lagging, 4), pt.state_digests(live, 4)):
+            payload = serial.dumps_dense("topk_rmv_psnap", pt.restrict_psnap(dense, live, part, 4))
+            blobs.append(pt.encode_psnap_blob(3, part, payload))
+            _name, psnap = serial.loads_dense(pt.decode_psnap_blob(blobs[-1])[2], like_delta_for(dense, live))
+            fixed = pt.apply_psnap(dense, fixed, psnap)
+        assert same_leaves(fixed, dense.merge(lagging, live))
+        out[name] = (fixed, blobs)
+    assert out["cpu"][1] == out["card"][1] and len(out["cpu"][1]) > 1
+    assert same_leaves(out["cpu"][0], out["card"][0])
+
+
+@pytest.mark.cuda
+def test_native_drain_on_card_equals_cpu(cuda):
+    from antidote_ccrdt_tpu_torch.harness import native_host as nh
+
+    assert nh.available(), nh.build_error()
+    rng = np.random.default_rng(2)
+    hosts = {"cpu": nh.NativeHost(3), "card": nh.NativeHost(3)}
+    for origin in range(3):
+        ids, scores = rng.integers(0, 50, 40), rng.integers(1, 900, 40)
+        vcs = rng.integers(0, 30, (6, 3)).astype(np.int32)
+        rids = rng.integers(0, 50, 6)
+        for h in hosts.values():
+            h.submit_batch(origin, np.zeros(40, np.int32), None, ids, scores)
+            h.submit_batch(origin, np.full(6, nh.KIND_RMV, np.int32), None, rids, vcs=vcs)
+    for r in range(3):
+        cpu_ops, na, nr = hosts["cpu"].drain_topk_rmv_ops(r, 64, 8, device="cpu")
+        card_ops, ca, cr = hosts["card"].drain_topk_rmv_ops(r, 64, 8, device=cuda)
+        assert (na, nr) == (ca, cr) and na > 0 and nr > 0
+        for f in type(cpu_ops).__dataclass_fields__:
+            got = getattr(card_ops, f)
+            assert got.is_cuda and torch.equal(got.cpu(), getattr(cpu_ops, f)), f
+    for h in hosts.values():
+        h.close()

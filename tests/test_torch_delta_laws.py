@@ -33,43 +33,7 @@ from antidote_ccrdt_tpu_torch.ops import compaction as pc
 from antidote_ccrdt_tpu_torch.ops import laws as plaws
 from antidote_ccrdt_tpu_torch.parallel import delta as pdelta
 from antidote_ccrdt_tpu_torch.parallel import monoid as pmon
-
-
-def assert_tree(port, jax_value, path="root"):
-    """The same structure, dict keys, shapes, dtypes and values."""
-    if isinstance(port, dict):
-        assert isinstance(jax_value, dict) and sorted(port) == sorted(jax_value), path
-        for k in port:
-            assert_tree(port[k], jax_value[k], f"{path}[{k!r}]")
-    elif dataclasses.is_dataclass(port):
-        assert type(port).__name__ == type(jax_value).__name__, path
-        for f in dataclasses.fields(port):
-            assert_tree(getattr(port, f.name), getattr(jax_value, f.name), f"{path}.{f.name}")
-    elif isinstance(port, torch.Tensor):
-        got, want = port.numpy(), np.asarray(jax_value)
-        assert got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want), path
-    else:
-        assert port == jax_value, path
-
-
-def to_jax(port):
-    """A port state (dataclass or dict of tensors, nested) as the JAX
-    package's twin."""
-    if isinstance(port, dict):
-        return {k: to_jax(v) for k, v in port.items()}
-    if isinstance(port, torch.Tensor):
-        return jnp.asarray(port.numpy())
-    twin = {
-        "AverageState": jav.AverageState, "WordcountDenseState": jwc.WordcountDenseState,
-        "TopkRmvDenseState": jtkr.TopkRmvDenseState, "LiftedMonoidState": jmon.LiftedMonoidState,
-        "TopkRmvDelta": jdelta.TopkRmvDelta,
-    }[type(port).__name__]
-    return twin(**{f.name: (to_jax(getattr(port, f.name)) if not f.metadata.get("static") else getattr(port, f.name))
-                   for f in dataclasses.fields(port)})
-
-
-def t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
+from torch_twins import assert_tree, t, to_jax
 
 
 # --- topk_rmv deltas ------------------------------------------------------------

@@ -1,0 +1,275 @@
+"""Shared helpers of the host-path differential tests: states made from
+one seed in both packages, and exact comparisons between them."""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+import jax.numpy as jnp
+
+from antidote_ccrdt_tpu.harness.dense_replay import DenseReplay as JaxReplay
+from antidote_ccrdt_tpu.harness.opgen import TopkRmvEffectGen as JaxGen
+from antidote_ccrdt_tpu.harness.opgen import Workload as JaxWorkload
+from antidote_ccrdt_tpu.models import average as jav
+from antidote_ccrdt_tpu.models import leaderboard as jlb
+from antidote_ccrdt_tpu.models import topk_rmv_dense as jtkr
+from antidote_ccrdt_tpu.models import wordcount as jwc
+from antidote_ccrdt_tpu.parallel import delta as jdelta
+from antidote_ccrdt_tpu.parallel import monoid as jmon
+from antidote_ccrdt_tpu_torch import convert, registry
+from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay
+from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+from antidote_ccrdt_tpu_torch.models import average as pav
+from antidote_ccrdt_tpu_torch.models import leaderboard as plb
+from antidote_ccrdt_tpu_torch.models import wordcount as pwc
+from antidote_ccrdt_tpu_torch.parallel import monoid as pmon
+
+NEG_INF = -(2**31 - 1)
+
+
+def assert_tree(port, jax_value, path="root"):
+    """The same structure, dict keys, shapes, dtypes and values."""
+    if isinstance(port, dict):
+        assert isinstance(jax_value, dict) and sorted(port) == sorted(jax_value), path
+        for k in port:
+            assert_tree(port[k], jax_value[k], f"{path}[{k!r}]")
+    elif dataclasses.is_dataclass(port):
+        assert type(port).__name__ == type(jax_value).__name__, path
+        for f in dataclasses.fields(port):
+            assert_tree(getattr(port, f.name), getattr(jax_value, f.name), f"{path}.{f.name}")
+    elif isinstance(port, torch.Tensor):
+        got, want = port.cpu().numpy(), np.asarray(jax_value)
+        assert got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want), path
+    else:
+        assert port == jax_value, path
+
+
+TWINS = {
+    "AverageState": jav.AverageState, "WordcountDenseState": jwc.WordcountDenseState,
+    "TopkRmvDenseState": jtkr.TopkRmvDenseState, "LiftedMonoidState": jmon.LiftedMonoidState,
+    "TopkRmvDelta": jdelta.TopkRmvDelta, "LeaderboardDenseState": jlb.LeaderboardDenseState,
+}
+
+
+def to_jax(port):
+    """A port state (dataclass or dict of tensors, nested) as the JAX
+    package's twin."""
+    if isinstance(port, dict):
+        return {k: to_jax(v) for k, v in port.items()}
+    if isinstance(port, torch.Tensor):
+        return jnp.asarray(port.cpu().numpy())
+    return TWINS[type(port).__name__](**{
+        f.name: (to_jax(getattr(port, f.name)) if not f.metadata.get("static") else getattr(port, f.name))
+        for f in dataclasses.fields(port)
+    })
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def topk_rmv_pair(seed, R=3, I=64, D=3, M=4, K=8, rounds=3):
+    """Engines and [state after each round] of a JAX replay and a port
+    replay fed the same seeded effect ops (a sync after round 1)."""
+    args = dict(n_replicas=R, n_ids=I, zipf_a=1.2, score_max=500, seed=seed)
+    jd = jtkr.make_dense(n_ids=I, n_dcs=D, size=K, slots_per_id=M)
+    pd = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=M, device="cpu")
+    jg, pg = JaxGen(JaxWorkload(**args)), TopkRmvEffectGen(Workload(**args), device="cpu")
+    jr, pr = JaxReplay(jd, R), DenseReplay(pd, R)
+    js, ps = [], []
+    for k in range(rounds):
+        jr.apply(jg.next_batch(12, 3))
+        pr.apply(pg.next_batch(12, 3))
+        if k == 1:
+            jr.sync()
+            pr.sync()
+        js.append(jr.state)
+        ps.append(pr.state)
+    return (jd, js), (pd, ps)
+
+
+def leaderboard_pair(seed, R=2, NK=2, P=40, K=5):
+    """Engines and a seeded leaderboard state in both packages."""
+    rng = np.random.default_rng(seed)
+    score = rng.integers(-50, 500, (R, NK, P)).astype(np.int32)
+    score[rng.random((R, NK, P)) < 0.4] = NEG_INF
+    banned = rng.random((R, NK, P)) < 0.2
+    jd, pd = jlb.make_dense(P, K), plb.make_dense(P, K, device="cpu")
+    return (jd, jlb.LeaderboardDenseState(jnp.asarray(score), jnp.asarray(banned))), (
+        pd, plb.LeaderboardDenseState(t(score), t(banned)))
+
+
+def wordcount_pair(seed, R=2, NK=2, V=16):
+    jd, pd = jwc.make_dense(V), registry.make_dense("wordcount", n_buckets=V, device="cpu")
+    rng = np.random.default_rng(seed)
+    cols = dict(key=rng.integers(0, NK, (R, 30)).astype(np.int32),
+                token=rng.integers(-1, V, (R, 30)).astype(np.int32))
+    js = jd.apply_ops(jd.init(R, NK), jwc.WordcountOps(**{k: jnp.asarray(v) for k, v in cols.items()}))[0]
+    ps = pd.apply_ops(pd.init(R, NK), convert.from_numpy(pwc.WordcountOps, cols, "cpu"))[0]
+    return (jd, js), (pd, ps)
+
+
+def lifted_pair(seed, R=5, NK=2, steps=4):
+    """MonoidLift(average) engines and [state after each step]; step k
+    writes only row k % R (the lift's single-writer contract)."""
+    jl, pl = jmon.MonoidLift(jav.AverageDense()), pmon.MonoidLift(registry.make_dense("average", device="cpu"))
+    rng = np.random.default_rng(seed)
+    js, ps = [jl.init(R, NK)], [pl.init(R, NK)]
+    for k in range(steps):
+        cols = dict(key=rng.integers(0, NK, (R, 6)).astype(np.int32),
+                    value=rng.integers(-20, 40, (R, 6)).astype(np.int32),
+                    count=rng.integers(1, 3, (R, 6)).astype(np.int32))
+        cols["count"][np.arange(R) != k % R] = 0
+        js.append(jl.apply_ops(js[-1], jav.AverageOps(**{n: jnp.asarray(v) for n, v in cols.items()}),
+                               owned=[k % R])[0])
+        ps.append(pl.apply_ops(ps[-1], convert.from_numpy(pav.AverageOps, cols, "cpu"), owned=[k % R])[0])
+    return (jl, js), (pl, ps)
+
+
+# --- elastic-worker drills (the API of scripts/elastic_demo.DRILLS) ---------------
+
+DR, DI, DDCS, DK, DM, DB, DBR, DNK_MONOID = 4, 64, 4, 8, 2, 32, 8, 2
+
+
+class TopkRmvDrill:
+    """A deterministic topk_rmv op stream per (step, replica) for one
+    package (``"jax"`` or ``"torch"``): the same ops in both, so a log
+    written by one package can be recovered by the other."""
+
+    name = publish_name = "topk_rmv"
+
+    def __init__(self, pkg="torch"):
+        self.pkg = pkg
+
+    def pub_state(self, dense, state):
+        return state
+
+    def set_view(self, dense, state, swept):
+        return swept
+
+    def make_engine(self):
+        if self.pkg == "jax":
+            return jtkr.make_dense(n_ids=DI, n_dcs=DDCS, size=DK, slots_per_id=DM)
+        return registry.make_dense("topk_rmv", n_ids=DI, n_dcs=DDCS, size=DK, slots_per_id=DM, device="cpu")
+
+    def init(self, dense):
+        return dense.init(DR, 1)
+
+    def gen_ops(self, step, owned):
+        owned = set(owned)
+        cols = dict(
+            add_key=np.zeros((DR, DB), np.int32), add_id=np.zeros((DR, DB), np.int32),
+            add_score=np.zeros((DR, DB), np.int32), add_dc=np.zeros((DR, DB), np.int32),
+            add_ts=np.zeros((DR, DB), np.int32), rmv_key=np.zeros((DR, DBR), np.int32),
+            rmv_id=np.full((DR, DBR), -1, np.int32), rmv_vc=np.zeros((DR, DBR, DDCS), np.int32),
+        )
+        for r in range(DR):
+            rng = np.random.default_rng(10_000 * (step + 1) + r)
+            ids, scores = rng.integers(0, DI, DB), rng.integers(1, 500, DB)
+            if r in owned:
+                cols["add_id"][r], cols["add_score"][r] = ids, scores
+                cols["add_dc"][r] = r % DDCS
+                cols["add_ts"][r] = step * DB + np.arange(DB) + 1
+                cols["rmv_id"][r] = rng.integers(0, DI, DBR)
+                cols["rmv_vc"][r, :, r % DDCS] = rng.integers(1, max(2, step * DB + 1), DBR)
+        if self.pkg == "jax":
+            return jtkr.TopkRmvOps(**{k: jnp.asarray(v) for k, v in cols.items()})
+        from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
+
+        return convert.from_numpy(TopkRmvOps, cols, "cpu")
+
+    def apply(self, dense, state, step, owned):
+        return dense.apply_ops(state, self.gen_ops(step, owned), collect_dominated=False)[0]
+
+    def digest(self, dense, state):
+        return leaf_bytes(self.pub_state(dense, state))
+
+
+class AverageDrill:
+    """The lifted average drill: a MonoidContributor per worker."""
+
+    name = "average"
+    publish_name = "average_lifted"
+
+    def __init__(self, pkg="torch"):
+        self.pkg = pkg
+
+    def make_engine(self):
+        if self.pkg == "jax":
+            return jmon.MonoidLift(jav.AverageDense())
+        return pmon.MonoidLift(registry.make_dense("average", device="cpu"))
+
+    def init(self, lift):
+        mod = jmon if self.pkg == "jax" else pmon
+        return mod.MonoidContributor(lift, DR, DNK_MONOID)
+
+    def gen_ops(self, step, owned):
+        owned = set(owned)
+        cols = {k: np.zeros((DR, DB), np.int32) for k in ("key", "value", "count")}
+        for r in range(DR):
+            rng = np.random.default_rng(20_000 * (step + 1) + r)
+            if r in owned:
+                cols["key"][r] = rng.integers(0, DNK_MONOID, DB)
+                cols["value"][r] = rng.integers(1, 100, DB)
+                cols["count"][r] = 1
+        if self.pkg == "jax":
+            return jav.AverageOps(**{k: jnp.asarray(v) for k, v in cols.items()})
+        return convert.from_numpy(pav.AverageOps, cols, "cpu")
+
+    def apply(self, lift, contrib, step, owned):
+        contrib.apply(self.gen_ops(step, owned), owned=sorted(owned))
+        return contrib
+
+    def pub_state(self, lift, contrib):
+        return contrib.view
+
+    def set_view(self, lift, contrib, swept):
+        contrib.absorb(swept)
+        return contrib
+
+    def digest(self, lift, contrib):
+        return leaf_bytes(contrib.view)
+
+
+DRILLS = {"topk_rmv": TopkRmvDrill(), "average": AverageDrill()}
+
+
+def leaf_bytes(state):
+    """(dtype, shape, bytes) of every leaf in order: equal for equal
+    states of either package."""
+    from antidote_ccrdt_tpu_torch.utils.tree import flatten_with_path
+
+    if not isinstance(next(iter(flatten_with_path(state)))[1], torch.Tensor):
+        import jax
+
+        flat = [np.asarray(x) for x in jax.tree_util.tree_leaves(state)]
+    else:
+        flat = [leaf.cpu().numpy() for _, leaf in flatten_with_path(state)]
+    return [(a.dtype.str, a.shape, a.tobytes()) for a in flat]
+
+
+def port_copy(test_file, skip=(), replace=()):
+    """The test functions and fixtures of the JAX package's `test_file`
+    (a file in this directory), compiled again with every import of
+    ``antidote_ccrdt_tpu`` turned into one of ``antidote_ccrdt_tpu_torch``
+    (and any further (old, new) source `replace` pairs, each of which
+    must occur): the same test
+    bodies, run through the port. Tests named in `skip` need a part of the
+    JAX package the port does not have yet and are left out."""
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), test_file)
+    with open(path) as f:
+        src = f.read()
+    for old, new in (("antidote_ccrdt_tpu.", "antidote_ccrdt_tpu_torch."), *replace):
+        assert old in src, (test_file, old)
+        src = src.replace(old, new)
+    ns = {"__name__": f"{test_file[:-3]}_through_the_port", "__file__": path}
+    exec(compile(src, path, "exec"), ns)
+    out = {k: v for k, v in ns.items()
+           if callable(v) and (k.startswith("test_") or hasattr(v, "_pytestfixturefunction")
+                               or type(v).__name__ == "FixtureFunctionDefinition")}
+    missing = set(skip) - set(out)
+    assert not missing, missing
+    return {k: v for k, v in out.items() if k not in skip}
