@@ -32,7 +32,15 @@ partitioned checkpoints (``harness/checkpoint.py``), the write-ahead
 delta log and its recovery (``harness/wal.py``), and the bindings of the
 native C++ op log, causal scheduler and corpus tokenizer
 (``harness/native_host.py``, ``harness/native_tokenizer.py``; built
-from ``native/*.cpp`` with g++ at first use). The kernels: K1 and K1c (tombstone
+from ``native/*.cpp`` with g++ at first use); the gossip plane: the
+zone topology (``topo/``), the bridge's frame protocol
+(``bridge/protocol.py``), SWIM membership and the file, simulator and
+TCP transports with the ``GossipNode`` facade (``net/``), replication
+lag, metrics export, request traces and the HTTP scrape endpoint
+(``obs/{lag,export,rtrace,http}.py``), the dispatch profiler and device
+observatory (``obs/{profile,devprof}.py``, hooked into
+``core/batch_merge.py``), and the delta publisher, partial
+anti-entropy and sweeps (``parallel/elastic.py``). The kernels: K1 and K1c (tombstone
 scatter-max), K2 (delta placement) and K3 (the slot sort, a path for
 each range of row widths) in ``csrc/``.
 """

@@ -39,6 +39,9 @@ import numpy as np
 import torch
 
 from ..device import HOST_ONLY, DeviceLike, resolve_device
+from ..obs import devprof
+from ..obs import profile
+from ..obs import spans as obs_spans
 from .behaviour import registry
 
 _I32_MIN, _I32_MAX = -(2**31 - 1), 2**31 - 1
@@ -82,8 +85,20 @@ def _leaves(tree: Any) -> List[torch.Tensor]:
 
 def snapshot_state(state: Any) -> Any:
     """A copy of every tensor leaf of a state: a held snapshot that no
-    later merge can touch."""
-    return _tree_map(torch.clone, state)
+    later merge can touch. Observed as the ``batch_merge.snapshot``
+    dispatch (a ``round.device_dispatch`` span, `obs.profile`)."""
+    tok = (
+        obs_spans.begin("round.device_dispatch", site="batch_merge.snapshot")
+        if obs_spans.ACTIVE
+        else None
+    )
+    try:
+        if profile.ACTIVE or devprof.ACTIVE:
+            with profile.dispatch("batch_merge.snapshot", operands=(state,)):
+                return _tree_map(torch.clone, state)
+        return _tree_map(torch.clone, state)
+    finally:
+        obs_spans.end(tok)
 
 
 def stage_to_device(tree: Any, device: DeviceLike = None) -> Any:
@@ -106,8 +121,22 @@ def merge_into(merge, state, incoming, donate_incoming: bool = True, site: str =
     """One window's merge, `state ⊔ incoming`. The JAX package donates
     `incoming`'s buffers to the result; buffer reuse never changes a
     result, so here it is the engine's merge, which writes no input.
-    `site` labels the call for the observability hooks, not ported yet."""
-    return merge(state, incoming)
+    `site` labels the dispatch for spans, `obs.profile` and
+    `obs.devprof`; `donate_incoming` only names the JAX slot
+    (``donate_rhs`` or ``plain``) in the devprof signature."""
+    donation = "donate_rhs" if donate_incoming else "plain"
+    tok = (
+        obs_spans.begin("round.device_dispatch", site=site, n=2)
+        if obs_spans.ACTIVE
+        else None
+    )
+    try:
+        if profile.ACTIVE or devprof.ACTIVE:
+            with profile.dispatch(site, fn=merge, operands=(incoming,), donation=donation):
+                return merge(state, incoming)
+        return merge(state, incoming)
+    finally:
+        obs_spans.end(tok)
 
 
 @contextlib.contextmanager
@@ -148,19 +177,34 @@ def fold_states(merge, states: Sequence[Any]):
     if len(states) == 1:
         return states[0]
     batch = _tree_map(lambda *xs: torch.stack(xs, 0), *states)
-    folded = _batched_fold(merge, batch)
+    folded = _batched_fold(merge, batch, donation="donate_both")
     return _tree_map(lambda x: x[0], folded)
 
 
-def _batched_fold(merge, batch: Any):
+def _batched_fold(merge, batch: Any, donation: str = ""):
     """Fold a [N, ...] state down to [1, ...]: each level merges the first
-    half against the second half in one call, carrying the odd row."""
+    half against the second half in one call, carrying the odd row. Each
+    level is observed as a ``batch_merge.fold`` dispatch; `donation`
+    names the JAX slot (``donate_both`` for `fold_states`) in the devprof
+    signature and changes nothing else."""
     n = _leaves(batch)[0].shape[0]
     while n > 1:
         half = n // 2
         lhs = _tree_map(lambda x: x[:half], batch)
         rhs = _tree_map(lambda x: x[half : 2 * half], batch)
-        merged = merge(lhs, rhs)
+        tok = (
+            obs_spans.begin("round.device_dispatch", site="batch_merge.fold", n=n)
+            if obs_spans.ACTIVE
+            else None
+        )
+        try:
+            if profile.ACTIVE or devprof.ACTIVE:
+                with profile.dispatch("batch_merge.fold", fn=merge, operands=(lhs, rhs), donation=donation):
+                    merged = merge(lhs, rhs)
+            else:
+                merged = merge(lhs, rhs)
+        finally:
+            obs_spans.end(tok)
         if n % 2:
             rest = _tree_map(lambda x: x[2 * half :], batch)
             batch = _tree_map(lambda m, t: torch.cat([m, t], 0), merged, rest)
@@ -185,15 +229,6 @@ def _memo_dense(type_name: str, device: DeviceLike = None, **caps):
     return eng
 
 
-def pad_dim(n: int) -> int:
-    """Next power of two >= n (min 1): a warm-up capacity bucket."""
-    n = max(int(n), 1)
-    p = 1
-    while p < n:
-        p <<= 1
-    return p
-
-
 def prewarm_topk_rmv(size: int, n_ids: int = 1, n_dcs: int = 1, max_slots: int = 1, device: DeviceLike = None) -> int:
     """Boot-time warm-up: build the kernels (on a card) and run one
     topk_rmv fold merge of [1, 1, U, M] halves per rung of the padded
@@ -206,11 +241,11 @@ def prewarm_topk_rmv(size: int, n_ids: int = 1, n_dcs: int = 1, max_slots: int =
         from ..ops import _build
 
         _build.build_all()
-    U, D = pad_dim(n_ids), pad_dim(n_dcs)
+    U, D = devprof.pad_dim(n_ids), devprof.pad_dim(n_dcs)
     rungs = 0
     m = 1
     while True:
-        m = pad_dim(m)
+        m = devprof.pad_dim(m)
         dense = _memo_dense("topk_rmv", dev, n_ids=U, n_dcs=D, size=size, slots_per_id=m)
 
         def blank():
@@ -381,6 +416,12 @@ def topk_rmv_tables(states, dev) -> Tuple[Any, List[Any], List[Any]]:
         for w, es in st.masked.items():
             union.setdefault(w, set()).update(es)
     M = max((len(es) for es in union.values()), default=1)
+    if devprof.WARMUP:
+        # Warm-up buckets (CCRDT_DEVPROF_WARMUP=1): capacities padded to
+        # the next power of two, as the JAX package pads them. Padded
+        # slots carry the absent-entry sentinels (_I32_MIN score, 0 ts,
+        # 0 vc) that the extraction skips, so the result is unchanged.
+        U, D, M = devprof.pad_dim(U), devprof.pad_dim(D), devprof.pad_dim(M)
     id_idx = {w: i for i, w in enumerate(ids)}
     dc_idx = {d: i for i, d in enumerate(dcs)}
 

@@ -125,6 +125,15 @@ def load(name: str, argtypes: List[type], symbol: Optional[str] = None) -> ctype
         return fn
 
 
+def loaded() -> int:
+    """How many kernel entry points this process has loaded: the port's
+    counterpart of a jit cache's size (``obs.devprof._cache_size``). It
+    grows when a kernel is first launched, building its library if
+    needed."""
+    with _lock:
+        return len(_fns)
+
+
 def load_host_library(name: str, extra_flags: Iterable[str] = ()) -> ctypes.CDLL:
     """``native/<name>.cpp`` built with g++ into ``build/lib<name>.so``
     (when missing or older than the source) and loaded. Raises

@@ -83,8 +83,25 @@ Phases, each printing one line (any failure exits non-zero):
    all backlogs drain. Then ``benchmarks/bench_all.py``'s
    worddocumentcount corpus as raw strings through the native tokenizer
    (replica 0 equal to the pure-Python path) onto the card;
-12. the kernels line (launches on each path that drives a kernel, phase
-   11's included), then the ok line.
+12. gossip: ``tests/test_net_chaos.py``'s chaos drill at the main path's
+   width: four members on the port's ``SimNet`` (seed 7, 5 % loss, 5 %
+   duplication, a partition that heals, a crash), each with its own
+   R = 32 x 100 000-id state on the card, applying elastic_demo-seeded
+   batches (32 768 Zipf(1.2) adds and 2 048 removals a replica) for the
+   replicas it owns, adopting replicas by re-applying their history,
+   publishing chained deltas and anchors (``DeltaPublisher``) and
+   sweeping its peers' (``sweep_deltas``) every second step, then a
+   fault-free tail until every survivor's digest (the observable top-100
+   of all replicas folded) equals the sequential reference; every sweep
+   must skip nothing, the simulator's fault counters must all have
+   fired, K1c, K2 and K3 must have launched, and every kernel call of
+   member m0 is held against its plain version. The same drill at
+   R = 4, I = 4 096 on the CPU and on the card ends in equal states and
+   counters. Then two ``TcpTransport`` members on 127.0.0.1 at
+   I = 40 000 (the widest anchor under ``MAX_FRAME``) pass an anchor and
+   three chained deltas, the receiver's state equal to the sender's;
+13. the kernels line (launches on each path that drives a kernel, phases
+   9-12 included), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -136,6 +153,19 @@ DOC_SHAPE, DOC_VOCAB, DOC_BUCKETS = (64, 512, 64), 50_000, 1 << 16
 # benchmarks/micro_tombstone.py's probe (pallas_bf16): removal rows per
 # replica.
 PROBE_BR = 1_024
+# Phase 12's gossip drill: tests/test_net_chaos.py's members, steps,
+# virtual seconds a step and ownership horizon, and its fault schedule
+# (partition {m0, m1} | {m2, m3} at step 3, heal at 6, crash m3 at 7);
+# SimNet(seed=7, latency=(0.001, 0.02), loss=0.05, dup=0.05); a quiescent
+# tail of at most 40 rounds. The ops of each (step, replica) are seeded as
+# scripts/elastic_demo.py seeds them, at the main path's width.
+GOSSIP_MEMBERS, GOSSIP_STEPS, GOSSIP_DT, GOSSIP_TIMEOUT, GOSSIP_TAIL = 4, 10, 0.1, 0.35, 40
+GOSSIP_SEED, GOSSIP_LATENCY, GOSSIP_LOSS, GOSSIP_DUP = 7, (0.001, 0.02), 0.05, 0.05
+# The reduced width (R, I, B, Br) of the CPU == card run of the same drill.
+GOSSIP_SMALL = (4, 4_096, 256, 32)
+# The TCP pair: the largest id count whose anchor fits the frame limit of
+# bridge/protocol.py (MAX_FRAME, 256 MiB), and the chained deltas after it.
+TCP_IDS, TCP_DELTAS = 40_000, 3
 
 
 def log(phase: str, **kw) -> None:
@@ -1369,6 +1399,359 @@ def phase_durable_host(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+class GossipOps:
+    """scripts/elastic_demo.py's op streams at a given width: the ops of
+    replica r at a step come from ``default_rng(10 000 (step + 1) + r)``
+    (ids Zipf(1.2) over the id space as phase 4 draws them, scores in
+    [1, 500), ts = step B + j + 1, dc = r mod D, Br removals carrying a
+    vc on that dc); a batch holds the owned replicas' ops, the others'
+    rows are padding."""
+
+    def __init__(self, r: int, ids: int, b: int, br: int, dev: str):
+        self.r, self.ids, self.b, self.br, self.dev = r, ids, b, br, dev
+        self._rows = {}
+
+    def rows(self, step: int, x: int):
+        got = self._rows.get((step, x))
+        if got is None:
+            import numpy as np
+
+            rng = np.random.default_rng(10_000 * (step + 1) + x)
+            ids = ((rng.zipf(1.2, self.b) - 1) % self.ids).astype(np.int32)
+            scores = rng.integers(1, 500, self.b).astype(np.int32)
+            rmv_id = rng.integers(0, self.ids, self.br).astype(np.int32)
+            rmv_t = rng.integers(1, max(2, step * self.b + 1), self.br).astype(np.int32)
+            got = self._rows[(step, x)] = (ids, scores, rmv_id, rmv_t)
+        return got
+
+    def batch(self, step: int, owned):
+        import numpy as np
+
+        from antidote_ccrdt_tpu_torch import convert
+        from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
+
+        r, b, br = self.r, self.b, self.br
+        cols = dict(
+            add_key=np.zeros((r, b), np.int32), add_id=np.zeros((r, b), np.int32),
+            add_score=np.zeros((r, b), np.int32), add_dc=np.zeros((r, b), np.int32),
+            add_ts=np.zeros((r, b), np.int32), rmv_key=np.zeros((r, br), np.int32),
+            rmv_id=np.full((r, br), -1, np.int32), rmv_vc=np.zeros((r, br, r), np.int32),
+        )
+        for x in sorted(owned):
+            ids, scores, rmv_id, rmv_t = self.rows(step, x)
+            cols["add_id"][x], cols["add_score"][x] = ids, scores
+            cols["add_dc"][x] = x % r
+            cols["add_ts"][x] = step * b + np.arange(b) + 1
+            cols["rmv_id"][x] = rmv_id
+            cols["rmv_vc"][x, :, x % r] = rmv_t
+        return convert.from_numpy(TopkRmvOps, cols, self.dev)
+
+
+def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None) -> dict:
+    """tests/test_net_chaos.py's ``run_chaos("topk_rmv", seed=7,
+    delta=True)`` on the port at width `geo` = (R, I, B, Br) on `dev`.
+    With `held`, every kernel call of member m0 is held against its plain
+    version (entries in `held`); with `timing`, publishes and sweeps are
+    timed into it; `launches` maps wrapper names to their wrappers, for
+    the launches of m0 and of the sweeps. Returns the members' states,
+    digests, the reference digest, the fault counters and the sweeps'
+    stats."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+    from antidote_ccrdt_tpu_torch.net.sim import SimNet
+    from antidote_ccrdt_tpu_torch.net.transport import GossipNode
+    from antidote_ccrdt_tpu_torch.parallel.elastic import DeltaPublisher, my_replicas, sweep_deltas
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+
+    r, ids, b, br = geo
+    on_card = torch.device(dev).type == "cuda"
+
+    def wait():
+        if on_card:
+            sync()
+
+    dense = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=K, slots_per_id=M, device=dev)
+    gen = GossipOps(r, ids, b, br, dev)
+    launches = launches or {}
+
+    def counts():
+        return {n: w.launches for n, w in launches.items()}
+
+    def apply(state, step, owned):
+        return dense.apply_ops(state, gen.batch(step, owned), collect_dominated=False)[0]
+
+    def adopt(state, gained, upto):
+        for g in sorted(gained):
+            for step in range(upto):
+                state = apply(state, step, [g])
+        return state
+
+    def digest(state):
+        obs = dense.value(fold_rows(dense, state, range(r)))[0][0]
+        return sorted((int(i), int(sc)) for (i, sc) in obs)
+
+    net = SimNet(seed=GOSSIP_SEED, latency=GOSSIP_LATENCY, loss=GOSSIP_LOSS, dup=GOSSIP_DUP)
+    names = [f"m{i}" for i in range(GOSSIP_MEMBERS)]
+    nodes = {m: GossipNode(net.join(m)) for m in names}
+    states = {m: dense.init(r, 1) for m in names}
+    cursors = {m: {} for m in names}
+    pubs = {m: DeltaPublisher(nodes[m], dense, name="topk_rmv", full_every=4) for m in names}
+    owned = {m: set() for m in names}
+    crashed = set()
+    sweeps = []
+    m0_launches = dict.fromkeys(launches, 0)
+    sweep_launches = dict.fromkeys(launches, 0)
+
+    def timed_fetches(node):
+        """`node`'s fetches (host: the medium, the blob's decode and its
+        upload) timed into timing["fetch_decode_ms"] for one sweep."""
+        spent = [0.0]
+        for attr in ("fetch", "fetch_delta_framed"):
+            inner = getattr(type(node), attr).__get__(node)
+
+            def call(*a, _inner=inner, **kw):
+                wait()
+                t0 = time.perf_counter()
+                try:
+                    return _inner(*a, **kw)
+                finally:
+                    wait()
+                    spent[0] += (time.perf_counter() - t0) * 1e3
+            setattr(node, attr, call)
+        return spent
+
+    def publish_and_sweep(m):
+        node = nodes[m]
+        snap_before = net.metrics.counters.get("net.snap_bytes", 0)
+        wait()
+        t0 = time.perf_counter()
+        got = pubs[m].publish(states[m])
+        wait()
+        if timing is not None and m != "m0":
+            ms = (time.perf_counter() - t0) * 1e3
+            if got["kind"] == "full":
+                timing["anchor_publish_ms"].append(ms)
+                timing["anchor_bytes"].append(int(net.metrics.counters["net.snap_bytes"] - snap_before))
+            else:
+                timing["delta_publish_ms"].append(ms)
+                timing["delta_bytes"].append(got["nbytes"])
+        spent = timed_fetches(node) if timing is not None and m != "m0" else None
+        before = counts()
+        wait()
+        t0 = time.perf_counter()
+        states[m], stats = sweep_deltas(node, dense, states[m], cursors[m])
+        wait()
+        total = (time.perf_counter() - t0) * 1e3
+        for n, c in counts().items():
+            sweep_launches[n] += c - before[n]
+        if spent is not None:
+            for attr in ("fetch", "fetch_delta_framed"):
+                delattr(node, attr)
+            timing["sweep_ms"].append(total)
+            timing["fetch_decode_ms"].append(spent[0])
+            timing["join_ms"].append(total - spent[0])
+        sweeps.append(dict(member=m, **stats))
+
+    def member_round(m, step, *, tail=False):
+        node = nodes[m]
+        node.heartbeat()
+        now_owned = owned[m] | set(my_replicas(node, r, GOSSIP_TIMEOUT))
+        gained = now_owned - owned[m]
+        if gained:
+            states[m] = adopt(states[m], sorted(gained), step)
+        owned[m] = now_owned
+        if not tail:
+            states[m] = apply(states[m], step, sorted(owned[m]))
+        if tail or step % 2 == 0:
+            publish_and_sweep(m)
+
+    def round_of(m, step, tail=False):
+        if m != "m0" or held is None:
+            return member_round(m, step, tail=tail)
+        before = counts()
+        with held_against_plain(torch, held):
+            member_round(m, step, tail=tail)
+        for n, c in counts().items():
+            m0_launches[n] += c - before[n]
+
+    for _ in range(3):  # bootstrap: the roster, fault-free
+        for m in names:
+            nodes[m].heartbeat()
+        net.advance(GOSSIP_DT)
+    for m in names:
+        if set(nodes[m].members()) != set(names):
+            raise AssertionError(f"gossip bootstrap incomplete at {m}: {nodes[m].members()}")
+    for step in range(GOSSIP_STEPS):
+        if step == 3:
+            net.partition({"m0", "m1"}, {"m2", "m3"})
+        if step == 6:
+            net.heal()
+        if step == 7:
+            net.crash("m3")
+            crashed.add("m3")
+        for m in names:
+            if m not in crashed:
+                round_of(m, step)
+        net.advance(GOSSIP_DT)
+    steps_vt = net.time
+
+    ref_state = dense.init(r, 1)
+    for step in range(GOSSIP_STEPS):
+        ref_state = apply(ref_state, step, range(r))
+    ref = digest(ref_state)
+    del ref_state
+    net.loss = net.dup = 0.0
+    live = [m for m in names if m not in crashed]
+
+    # The tail ends when every survivor shows the reference's digest and
+    # the victim's replicas have been adopted (a survivor owns each of
+    # the R replicas): the digest, a top-K, can agree before the victim's
+    # last steps are re-applied.
+    tail = 0
+    for tail in range(1, GOSSIP_TAIL + 1):
+        for m in live:
+            round_of(m, GOSSIP_STEPS, tail=True)
+        net.advance(GOSSIP_DT)
+        covered = set().union(*(owned[m] for m in live)) == set(range(r))
+        if covered and all(digest(states[m]) == ref for m in live):
+            break
+    return dict(dense=dense, states={m: states[m] for m in live}, digests={m: digest(states[m]) for m in live},
+                ref=ref, covered=covered, counters=dict(net.metrics.counters), sweeps=sweeps, tail_rounds=tail,
+                steps_vt=steps_vt, converged_vt=net.time, m0_launches=m0_launches, sweep_launches=sweep_launches)
+
+
+def phase_gossip(torch, card: str, dev: str = "cuda") -> dict:
+    """The gossip plane at the main path's width: the chaos drill on the
+    simulator, its reduced twin on the CPU and the card, and a TCP pair.
+    Returns the phase's K1c, K2 and K3 launches."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.bridge.protocol import MAX_FRAME
+    from antidote_ccrdt_tpu_torch.net.tcp import TcpTransport
+    from antidote_ccrdt_tpu_torch.net.transport import GossipNode
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.parallel.elastic import DeltaPublisher, sweep_deltas
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    wrappers = {"scatter_max_rows_copy": kernels.scatter_max_rows_copy, "delta_place": delta_place,
+                "sort_slots": kernels.sort_slots}
+    kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
+
+    def same(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(leaves(a), leaves(b)))
+
+    def check_drill(out, what):
+        bad = {m: d for m, d in out["digests"].items() if d != out["ref"]}
+        if not out["ref"] or bad or not out["covered"]:
+            raise AssertionError(f"{what}: survivors {sorted(bad)} differ from the sequential reference "
+                                 f"after {out['tail_rounds']} tail rounds")
+        skipped = [sw for sw in out["sweeps"] if sw["skipped"]]
+        if skipped:
+            raise AssertionError(f"{what}: sweeps skipped a blob: {skipped}")
+        fired = {c: out["counters"].get(c, 0) for c in
+                 ("net.sim_lost", "net.sim_duplicated", "net.sim_unreachable", "net.dead_events")}
+        if not all(fired.values()):
+            raise AssertionError(f"{what}: a fault never fired: {fired}")
+        return fired
+
+    t_phase = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    gc.collect()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    held = {}
+    timing = {k: [] for k in ("anchor_publish_ms", "anchor_bytes", "delta_publish_ms", "delta_bytes",
+                              "sweep_ms", "fetch_decode_ms", "join_ms")}
+    t0 = time.perf_counter()
+    out = run_gossip(torch, dev, (R, I, B, BR), held=held, timing=timing, launches=wrappers)
+    drill_s = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    require_launches(launches, wrappers, "the gossip drill")
+    require_launches(out["sweep_launches"], ["sort_slots"], "the gossip drill's sweeps")
+    fired = check_drill(out, "the gossip drill")
+    held_calls = {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in wrappers}
+    if held_calls != out["m0_launches"] or not all(held_calls.values()):
+        raise AssertionError(f"m0 launched {out['m0_launches']}, of which held against the plain versions "
+                             f"{held_calls}")
+    state_bytes = sum(x.numel() * x.element_size() for x in leaves(out["states"]["m0"]))
+    peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9
+    del out["states"], out["dense"]
+    gc.collect()
+
+    # The same drill at the reduced width, plain versions on the CPU
+    # against the kernels on the card.
+    small = {d: run_gossip(torch, d, GOSSIP_SMALL) for d in ("cpu", dev)}
+    for d, o in small.items():
+        check_drill(o, f"the reduced drill on {d}")
+    cpu, card_run = small["cpu"], small[dev]
+    if cpu["counters"] != card_run["counters"] or cpu["sweeps"] != card_run["sweeps"]:
+        raise AssertionError("the reduced drill's fault counters or sweeps differ between the CPU and the card")
+    if sorted(cpu["states"]) != sorted(card_run["states"]) or not all(
+            same(cpu["states"][m], card_run["states"][m]) for m in cpu["states"]):
+        raise AssertionError("the reduced drill's member states differ between the CPU and the card")
+
+    log("12 gossip", card=card, members=GOSSIP_MEMBERS, steps=GOSSIP_STEPS, replicas=R, ids=I, adds=B,
+        removals=BR, state_bytes=state_bytes, steps_virtual_s=out["steps_vt"],
+        converged_virtual_s=out["converged_vt"], tail_rounds=out["tail_rounds"], survivors=sorted(out["digests"]),
+        digest_entries=len(out["ref"]), **timing, sweeps=len(out["sweeps"]),
+        deltas_applied=sum(sw["deltas"] for sw in out["sweeps"]),
+        anchors_merged=sum(sw["fulls"] for sw in out["sweeps"]), launches=launches,
+        sweep_launches=out["sweep_launches"], m0_launches=out["m0_launches"], held_against_plain=held,
+        faults=fired, peak_mem_gb=peak_gb, drill_s=drill_s,
+        reduced=dict(geometry=GOSSIP_SMALL, equal_cpu_card=True, tail_rounds=card_run["tail_rounds"]),
+        phase_s=time.perf_counter() - t_phase)
+
+    # TCP: the widest anchor under MAX_FRAME, then chained deltas.
+    t_tcp = time.perf_counter()
+    dense = registry.make_dense("topk_rmv", n_ids=TCP_IDS, n_dcs=R, size=K, slots_per_id=M, device=dev)
+    gen = GossipOps(R, TCP_IDS, B, BR, dev)
+    a = TcpTransport("a", send_timeout=120.0)
+    b = TcpTransport("b", send_timeout=120.0)
+    try:
+        a.add_peer("b", b.address)
+        b.add_peer("a", a.address)
+        sender, receiver = GossipNode(a), GossipNode(b)
+        pub = DeltaPublisher(sender, dense, name="topk_rmv", full_every=TCP_DELTAS + 1)
+        state, got, cursors = dense.init(R, 1), dense.init(R, 1), {}
+        tcp = {"anchor_ms": [], "delta_ms": [], "anchor_bytes": [], "delta_bytes": []}
+        for step in range(TCP_DELTAS + 1):
+            state = dense.apply_ops(state, gen.batch(step, range(R)), collect_dominated=False)[0]
+            sync()
+            t0 = time.perf_counter()
+            kind = pub.publish(state)
+            deadline = time.monotonic() + 300
+            while not (receiver.snapshot_seq("a") == 0 if kind["kind"] == "full" else step in b.delta_seqs("a")):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"TCP {kind['kind']} {step} never arrived: {dict(a.metrics.counters)}")
+                time.sleep(0.001)
+            got, stats = sweep_deltas(receiver, dense, got, cursors)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            want = {"deltas": 0, "fulls": 1, "skipped": 0} if kind["kind"] == "full" else \
+                {"deltas": 1, "fulls": 0, "skipped": 0}
+            if (kind["kind"] == "full") != (step == 0) or stats != want:
+                raise AssertionError(f"TCP step {step}: published {kind}, swept {stats}")
+            tcp["anchor_ms" if step == 0 else "delta_ms"].append(ms)
+            if step == 0:
+                tcp["anchor_bytes"].append(int(a.metrics.counters["net.snap_bytes"]))
+            else:
+                tcp["delta_bytes"].append(kind["nbytes"])
+        if not same(got, state):
+            raise AssertionError("the TCP receiver's state differs from the sender's")
+        if not tcp["anchor_bytes"][0] < MAX_FRAME:
+            raise AssertionError(f"the TCP anchor of {tcp['anchor_bytes'][0]} bytes is past MAX_FRAME")
+        counters = {k: v for k, v in a.metrics.counters.items() if k.startswith("net.")}
+    finally:
+        a.close()
+        b.close()
+    log("12 tcp", card=card, replicas=R, ids=TCP_IDS, deltas=TCP_DELTAS, max_frame=MAX_FRAME, **tcp,
+        equal=True, sender_counters=counters, phase_s=time.perf_counter() - t_tcp)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -1399,6 +1782,7 @@ def main() -> int:
     laws = phase_monoid(torch, card, topk_rmv)
     del topk_rmv
     durable = phase_durable_host(torch, card)
+    gossip = phase_gossip(torch, card)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -1424,7 +1808,7 @@ def main() -> int:
                   "sort_slots_block": "wide rows (phase 8)", "sort_slots_global": "wide rows (phase 8)"}
     by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in sources}
     for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
-                      ("durable host (phase 11)", durable)):
+                      ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

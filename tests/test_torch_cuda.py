@@ -652,3 +652,26 @@ def test_native_drain_on_card_equals_cpu(cuda):
             assert got.is_cuda and torch.equal(got.cpu(), getattr(cpu_ops, f)), f
     for h in hosts.values():
         h.close()
+
+
+
+@pytest.mark.cuda
+def test_chaos_drill_on_card_equals_cpu(cuda):
+    """chip_smoke.py phase 12's chaos drill at its reduced width
+    (``GOSSIP_SMALL``) ends, member for member, in the states of the same
+    drill on the CPU, with the same fault counters and sweeps; the
+    sweeps' joins launched K3 on the card."""
+    import chip_smoke
+
+    wrappers = {"sort_slots": kernels.sort_slots}
+    cpu = chip_smoke.run_gossip(torch, "cpu", chip_smoke.GOSSIP_SMALL)
+    card = chip_smoke.run_gossip(torch, cuda.type, chip_smoke.GOSSIP_SMALL, launches=wrappers)
+    assert card["counters"] == cpu["counters"] and card["sweeps"] == cpu["sweeps"]
+    assert all(s["skipped"] == 0 for s in card["sweeps"]) and sum(s["deltas"] for s in card["sweeps"]) > 0
+    for c in ("net.sim_lost", "net.sim_duplicated", "net.sim_unreachable", "net.dead_events"):
+        assert card["counters"].get(c, 0) > 0, c
+    assert card["covered"] and all(d == card["ref"] for d in card["digests"].values())
+    assert sorted(card["states"]) == sorted(cpu["states"])
+    for m, st in card["states"].items():
+        assert st.slot_score.is_cuda and same_leaves(st, cpu["states"][m]), m
+    assert card["sweep_launches"]["sort_slots"] > 0

@@ -3,8 +3,7 @@
 
 * Every case of ``tests/test_faults.py``, ``tests/test_obs_events.py``
   and ``tests/test_obs_spans.py`` runs again through the port's modules
-  (the one span case that needs ``net/sim.py``, not ported yet, is left
-  out).
+  (the span case on ``net/sim.py`` included).
 * The same plan and seed give the same decisions, ``trace()`` and
   ``hits()`` in both packages, and the env payloads round-trip between
   them.
@@ -24,7 +23,7 @@ from torch_twins import port_copy
 
 globals().update(port_copy("test_faults.py"))
 globals().update(port_copy("test_obs_events.py"))
-globals().update(port_copy("test_obs_spans.py", skip=["test_sim_offset_error_bounded_by_rtt_asymmetry"]))
+globals().update(port_copy("test_obs_spans.py"))
 
 
 @pytest.fixture(autouse=True)

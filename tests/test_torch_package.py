@@ -15,15 +15,19 @@ from antidote_ccrdt_tpu_torch.ops import laws  # noqa: F401  (registers the law 
 from antidote_ccrdt_tpu_torch.ops.compaction import compact_effect_ops
 
 REPO = Path(__file__).resolve().parent.parent
-# Modules of the compaction and MONOID slice, the validation module, and
-# the durable host path (its nine modules and the pager stub); the walk
-# must import each.
+# Modules of the compaction and MONOID slice, the validation module, the
+# durable host path (its nine modules and the pager stub) and the gossip
+# plane; the walk must import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
     "utils.validate",
     "obs", "obs.events", "obs.spans", "utils.faults", "harness.replay", "core.partition", "core.pager",
     "harness.checkpoint", "harness.wal", "harness.native_host", "harness.native_tokenizer",
+    # the gossip plane
+    "topo", "topo.zones", "topo.anchor", "topo.codec", "topo.router", "bridge", "bridge.protocol",
+    "net", "net.membership", "net.transport", "net.sim", "net.tcp", "obs.lag", "obs.export",
+    "obs.rtrace", "obs.http", "obs.profile", "obs.devprof", "parallel.elastic",
 ]
 
 

@@ -129,7 +129,8 @@ def lifted_pair(seed, R=5, NK=2, steps=4):
 
 # --- elastic-worker drills (the API of scripts/elastic_demo.DRILLS) ---------------
 
-DR, DI, DDCS, DK, DM, DB, DBR, DNK_MONOID = 4, 64, 4, 8, 2, 32, 8, 2
+# scripts/elastic_demo.py's geometry (R, I, DCS, K, M, B, Br, NK_MONOID, V).
+DR, DI, DDCS, DK, DM, DB, DBR, DNK_MONOID, DV = 4, 64, 4, 8, 2, 32, 8, 2, 32
 
 
 class TopkRmvDrill:
@@ -232,7 +233,113 @@ class AverageDrill:
         return leaf_bytes(contrib.view)
 
 
-DRILLS = {"topk_rmv": TopkRmvDrill(), "average": AverageDrill()}
+class WordcountDrill(AverageDrill):
+    """The lifted wordcount drill (elastic_demo's ``_WordcountDrill``):
+    2 keys, V = 32 buckets, a MonoidContributor per worker."""
+
+    name = "wordcount"
+    publish_name = "wordcount_lifted"
+
+    def make_engine(self):
+        if self.pkg == "jax":
+            return jmon.MonoidLift(jwc.WordcountDense(DV))
+        return pmon.MonoidLift(registry.make_dense("wordcount", n_buckets=DV, device="cpu"))
+
+    def gen_ops(self, step, owned):
+        owned = set(owned)
+        key, tok = np.zeros((DR, DB), np.int32), np.full((DR, DB), -1, np.int32)
+        for r in range(DR):
+            rng = np.random.default_rng(30_000 * (step + 1) + r)
+            if r in owned:
+                key[r] = rng.integers(0, DNK_MONOID, DB)
+                tok[r] = rng.integers(0, DV, DB)
+        if self.pkg == "jax":
+            return jwc.WordcountOps(key=jnp.asarray(key), token=jnp.asarray(tok))
+        return convert.from_numpy(pwc.WordcountOps, dict(key=key, token=tok), "cpu")
+
+
+def _adopt(self, dense, state, gained, upto_step):
+    """elastic_demo's adoption: the gained replicas' whole history, in
+    order (JOIN: re-applied in place; MONOID: into the own rows)."""
+    for g in sorted(gained):
+        for s in range(upto_step):
+            state = self.apply(dense, state, s, [g])
+    return state
+
+
+TopkRmvDrill.adopt = _adopt
+AverageDrill.adopt = _adopt
+
+DRILLS = {"topk_rmv": TopkRmvDrill(), "average": AverageDrill(), "wordcount": WordcountDrill()}
+
+
+# --- elastic_demo's geometry and observable digests ---------------------------
+
+R, STEPS = DR, 10  # scripts/elastic_demo.py: R = 4 replicas, 10 steps
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class DemoTopkRmvDrill(TopkRmvDrill):
+    """The drill as scripts/elastic_demo.py digests it: the observable
+    top-K of all R replica rows folded by the join."""
+
+    def digest(self, dense, state):
+        if self.pkg == "jax":
+            from antidote_ccrdt_tpu.harness.dense_replay import fold_rows
+        else:
+            from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+        obs = dense.value(fold_rows(dense, state, range(DR)))[0][0]
+        return sorted((int(i), int(s)) for (i, s) in obs)
+
+
+class DemoAverageDrill(AverageDrill):
+    def digest(self, lift, contrib):
+        tot = lift.total(contrib.view)
+        return [[int(x) for x in _host(tot.sum)[0]], [int(x) for x in _host(tot.num)[0]]]
+
+
+class DemoWordcountDrill(WordcountDrill):
+    def digest(self, lift, contrib):
+        tot = lift.total(contrib.view)
+        counts = _host(tot.counts)[0]
+        out = [[k, int(t), int(counts[k, t])] for k in range(DNK_MONOID) for t in np.nonzero(counts[k])[0]]
+        return out + [["lost", int(_host(tot.lost).sum())]]
+
+
+DEMO_DRILLS = {"topk_rmv": DemoTopkRmvDrill(), "average": DemoAverageDrill(), "wordcount": DemoWordcountDrill()}
+
+
+def demo_drills(pkg):
+    return {"topk_rmv": DemoTopkRmvDrill(pkg), "average": DemoAverageDrill(pkg), "wordcount": DemoWordcountDrill(pkg)}
+
+
+def reference_digest(type_name="topk_rmv", pkg="torch"):
+    """elastic_demo's sequential ground truth (every step, every
+    replica) through `pkg`'s engines."""
+    drill = demo_drills(pkg)[type_name]
+    dense = drill.make_engine()
+    state = drill.init(dense)
+    for step in range(STEPS):
+        state = drill.apply(dense, state, step, range(DR))
+    return drill.digest(dense, state)
+
+
+class torch_jnp:
+    """The few ``jax.numpy`` names the JAX package's test files build ops
+    with, as torch tensors on the CPU (for `port_copy`)."""
+
+    int32 = torch.int32
+
+    @staticmethod
+    def asarray(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype)
+
+    @staticmethod
+    def zeros(shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype)
 
 
 def leaf_bytes(state):
@@ -249,14 +356,15 @@ def leaf_bytes(state):
     return [(a.dtype.str, a.shape, a.tobytes()) for a in flat]
 
 
-def port_copy(test_file, skip=(), replace=()):
+def port_copy(test_file, skip=(), replace=(), helpers=()):
     """The test functions and fixtures of the JAX package's `test_file`
     (a file in this directory), compiled again with every import of
     ``antidote_ccrdt_tpu`` turned into one of ``antidote_ccrdt_tpu_torch``
     (and any further (old, new) source `replace` pairs, each of which
     must occur): the same test
     bodies, run through the port. Tests named in `skip` need a part of the
-    JAX package the port does not have yet and are left out."""
+    JAX package the port does not have yet and are left out. `helpers`
+    names further functions of the copy to return with the tests."""
     import os
 
     path = os.path.join(os.path.dirname(__file__), test_file)
@@ -270,6 +378,37 @@ def port_copy(test_file, skip=(), replace=()):
     out = {k: v for k, v in ns.items()
            if callable(v) and (k.startswith("test_") or hasattr(v, "_pytestfixturefunction")
                                or type(v).__name__ == "FixtureFunctionDefinition")}
+    out.update({k: ns[k] for k in helpers})
     missing = set(skip) - set(out)
     assert not missing, missing
     return {k: v for k, v in out.items() if k not in skip}
+
+
+def port_copies(*specs):
+    """The merged `port_copy` of several files: each spec is a file name
+    or (file name, keyword arguments). A test name that two files share
+    is kept from both, each suffixed with its file's stem."""
+    got = []
+    for spec in specs:
+        name, kw = (spec, {}) if isinstance(spec, str) else spec
+        got.append((name[:-3], port_copy(name, **kw)))
+    seen = {}
+    for _stem, fns in got:
+        for k in fns:
+            seen[k] = seen.get(k, 0) + 1
+    out = {}
+    for stem, fns in got:
+        for k, v in fns.items():
+            if seen[k] > 1 and k.startswith("test_"):
+                out[f"{k}__{stem}"] = v
+            else:
+                assert k not in out, f"fixture {k} defined by two of {specs}"
+                out[k] = v
+    return out
+
+
+def leaves_of(state):
+    """The tensor leaves of a port state, in JAX's order."""
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    return leaves(state)
