@@ -40,7 +40,12 @@ lag, metrics export, request traces and the HTTP scrape endpoint
 (``obs/{lag,export,rtrace,http}.py``), the dispatch profiler and device
 observatory (``obs/{profile,devprof}.py``, hooked into
 ``core/batch_merge.py``), and the delta publisher, partial
-anti-entropy and sweeps (``parallel/elastic.py``). The kernels: K1 and K1c (tombstone
+anti-entropy and sweeps (``parallel/elastic.py``); the serve plane: snapshot
+replicas, the one fold-and-observe materialization, the query plane and
+its batcher, hot-key cache, sessions, the fleet read router, the ingest
+plane and write router with tiered acks and the client write sessions
+(``serve/``), and the audit certifiers and law checker
+(``obs/audit.py``). The kernels: K1 and K1c (tombstone
 scatter-max), K2 (delta placement) and K3 (the slot sort, a path for
 each range of row widths) in ``csrc/``.
 """

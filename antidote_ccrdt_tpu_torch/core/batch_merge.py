@@ -42,6 +42,7 @@ from ..device import HOST_ONLY, DeviceLike, resolve_device
 from ..obs import devprof
 from ..obs import profile
 from ..obs import spans as obs_spans
+from ..utils.tree import dataclass_fields
 from .behaviour import registry
 
 _I32_MIN, _I32_MAX = -(2**31 - 1), 2**31 - 1
@@ -64,14 +65,17 @@ def _check_i32(x: int) -> int:
 
 def _tree_map(fn: Callable, *trees: Any) -> Any:
     """`fn` over the tensor leaves of dataclass / NamedTuple states (None
-    leaves stay None)."""
+    leaves stay None; a static dataclass field is structure, taken from
+    the first tree, as JAX's treedef carries it)."""
     t0 = trees[0]
     if t0 is None:
         return None
     if dataclasses.is_dataclass(t0):
-        return type(t0)(**{
-            f.name: _tree_map(fn, *(getattr(t, f.name) for t in trees)) for f in dataclasses.fields(t0)
-        })
+        names, static = dataclass_fields(type(t0))
+        return type(t0)(
+            **{n: _tree_map(fn, *(getattr(t, n) for t in trees)) for n in names},
+            **{k: getattr(t0, k) for k in static},
+        )
     if isinstance(t0, tuple) and hasattr(t0, "_fields"):
         return type(t0)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
     return fn(*trees)

@@ -1213,19 +1213,18 @@ class TcpTransport:
         Degrade-never-hang, exactly like `_send_metrics_resp`: a handler
         failure (including an injected `serve.query` fault) or the
         `tcp.send` fault point closes the connection, so the querier
-        sees EOF/error within its own timeout. Without an installed
-        handler the JAX package answers with the serve plane's "no serve
-        plane" error document; the serve plane is not ported yet
-        (ROADMAP A9), so here that branch raises `NotImplementedError`
-        and the connection closes."""
+        sees EOF/error within its own timeout."""
         self.metrics.count("net.queries")
         try:
             handler = self.query_handler
             if handler is None:
-                raise NotImplementedError(
-                    "TcpTransport query without a handler: the serve plane (serve/plane) is not ported yet"
+                from ..serve import plane as serve_plane
+
+                resp = serve_plane.encode(
+                    {"member": self.member, "error": "no serve plane"}
                 )
-            resp = bytes(handler(payload))
+            else:
+                resp = bytes(handler(payload))
         except Exception:  # noqa: BLE001 — degrade: close, querier times out
             try:
                 conn.close()
@@ -1256,19 +1255,18 @@ class TcpTransport:
         Degrade-never-hang, exactly like `_send_query_resp`: a handler
         failure or the `tcp.send` fault point closes the connection, so
         the writer sees EOF/error within its own timeout and retries
-        idempotently by write_id. Without an installed handler the JAX
-        package answers with the serve plane's "no ingest plane" error
-        document; here that branch raises `NotImplementedError` (the
-        serve plane is not ported yet, ROADMAP A9) and the connection
-        closes."""
+        idempotently by write_id."""
         self.metrics.count("net.writes")
         try:
             handler = self.write_handler
             if handler is None:
-                raise NotImplementedError(
-                    "TcpTransport write without a handler: the serve plane (serve/ingest) is not ported yet"
+                from ..serve import plane as serve_plane
+
+                resp = serve_plane.encode(
+                    {"member": self.member, "error": "no ingest plane"}
                 )
-            resp = bytes(handler(payload))
+            else:
+                resp = bytes(handler(payload))
         except Exception:  # noqa: BLE001 — degrade: close, writer times out
             try:
                 conn.close()

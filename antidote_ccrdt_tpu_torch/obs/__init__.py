@@ -27,11 +27,15 @@ the checkpoint journal and the fault registry can import them without
 cycles; the other modules may import package code and are pulled in
 lazily by the layers that need them. Their ``ACTIVE`` flags, rings and
 spill files belong to this package: arming the JAX package's recorder,
-tracer or profiler does not arm these, nor the reverse. `obs.audit` is
-not ported yet (ROADMAP A9).
+tracer or profiler does not arm these, nor the reverse.
+* `obs.audit` — the certified-convergence plane: the causal apply-order
+  audit, op-count and durability reconciliation, signed convergence,
+  session and write certificates (byte-equal to the JAX package's, so
+  each verifies the other's), the lattice-law checker over `ops.laws`
+  and the divergence watchdog.
 """
 
 from . import events  # noqa: F401  (stdlib-only, safe for all importers)
 from . import spans  # noqa: F401  (stdlib-only, safe for all importers)
 
-__all__ = ["events", "lag", "export", "http", "rtrace", "profile", "devprof", "spans"]
+__all__ = ["events", "lag", "export", "http", "rtrace", "profile", "devprof", "spans", "audit"]

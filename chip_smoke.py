@@ -100,8 +100,30 @@ Phases, each printing one line (any failure exits non-zero):
    counters. Then two ``TcpTransport`` members on 127.0.0.1 at
    I = 40 000 (the widest anchor under ``MAX_FRAME``) pass an anchor and
    three chained deltas, the receiver's state equal to the sender's;
-13. the kernels line (launches on each path that drives a kernel, phases
-   9-12 included), then the ok line.
+13. served fleet: (a) the read plane at the main path's width: phase 4's
+   engine and seeded batches, 4 apply rounds each swapped into a
+   ``ServePlane``, materialized (the fold's K3 joins, ``observe``, the host
+   pull, timed apart) and read by 4 client threads sending frames of
+   1 024 queries in ``scripts/serve_demo.py``'s mix through ``handle()``
+   (one frame a round over a ``TcpTransport`` query frame): every value
+   equals the engine's ``value()`` of the snapshot at its ``as_of_seq``,
+   every staleness bound covers the snapshot's true age; (b)
+   ``scripts/serve_demo.py``'s fleet with ``scripts/write_tier_demo.py``'s
+   writers, in process on the card: 3 workers (``TcpTransport``,
+   ``GossipNode``, ``ServePlane``, ``IngestPlane``, ``ElasticWal``) over
+   R = 32 replicas, NK = 4 keys, 4 096 ids, a full-snapshot sweep every
+   step for 10 steps, 4 query threads and 3 write sessions (acks
+   ``durable`` and ``replicated_to_k``, every ack read back by its
+   session) under the demos' seeded faults, the hot key's owner failing
+   after its publish at step 5; gates: no bound violation, no identity
+   mismatch, both certificates verified, the survivors at the sequential
+   reference digest (every replica's ops and every folded client write),
+   the write tier's counters lit, worker w0's K1c, K2 and K3 calls held
+   against their plain versions; the same flow at R = 4, 1 024 ids with
+   no threads or faults gives equal answer bytes, certificates and
+   digests on the CPU and the card;
+14. the kernels line (launches on each path that drives a kernel, phases
+   9-13 included), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -116,6 +138,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -166,6 +189,41 @@ GOSSIP_SMALL = (4, 4_096, 256, 32)
 # The TCP pair: the largest id count whose anchor fits the frame limit of
 # bridge/protocol.py (MAX_FRAME, 256 MiB), and the chained deltas after it.
 TCP_IDS, TCP_DELTAS = 40_000, 3
+# Phase 13a, the read plane at the main path's width: apply rounds each
+# swapped into a ServePlane, client threads sending frames of queries in
+# scripts/serve_demo.py's mix for a window after each swap.
+SERVE_ROUNDS, SERVE_CLIENTS, SERVE_FRAME, SERVE_WINDOW_S = 4, 4, 1_024, 1.0
+# Phase 13b, the served fleet: scripts/serve_demo.py's flow (3 workers on
+# TcpTransport sockets, a full-snapshot sweep every step, 4 query threads
+# sending frames of 1 024 queries over NK = 4 keys) with
+# scripts/write_tier_demo.py's writers (3 write sessions through a
+# WriteRouter, acks durable and replicated_to_k, bursts of 3 ids x 4 adds
+# kept to M per id) and its fault plans; the hot key's owner fails after
+# its publish at FLEET_KILL_AT. Width (R, I, B, Br): R = D = 32, M = 4,
+# K = 100 as the main path, the demo's 4:1 adds to removals, I cut to
+# 4 096 ids a key for time (every step publishes each worker's whole
+# state over TCP).
+FLEET_MEMBERS, FLEET_STEPS, FLEET_KILL_AT, FLEET_NK, FLEET_TAIL = ("w0", "w1", "w2"), 10, 5, 4, 10
+FLEET = (32, 4_096, 2_048, 512)
+FLEET_WRITERS, FLEET_IDS_PER_BURST, FLEET_ADDS_PER_ID, FLEET_STALENESS_S = 3, 3, 4, 60.0
+# The fleet's query threads wait this long between frames, so that the
+# workers' steps keep a share of the interpreter (13a reads flat out).
+FLEET_QUERY_GAP_S = 1.0
+# How long a write's read-back may keep asking until a worker's snapshot
+# covers its session (at least a step of the fleet).
+FLEET_READBACK_S = 120.0
+FLEET_FAULTS = {  # serve_demo's and write_tier_demo's plans, in one process
+    "tcp.send": [{"action": "drop", "rate": 0.02}],
+    "serve.query": [{"action": "delay", "rate": 0.01, "delay_s": 0.002}],
+    "serve.write": [{"action": "delay", "rate": 0.05, "delay_s": 0.002}],
+    "router.write": [{"action": "drop", "rate": 0.05}],
+}
+# write_tier_demo's counters that must be nonzero after the storm.
+FLEET_NONZERO = ("router.writes", "router.write_successes", "router.write_failovers",
+                 "write_session.flushes", "write_session.staged_ops")
+# The reduced width of the CPU == card run of the same flow (no threads,
+# no faults, frozen clocks, so that its bytes are comparable).
+FLEET_SMALL = (4, 1_024, 64, 16)
 
 
 def log(phase: str, **kw) -> None:
@@ -195,18 +253,22 @@ def max_abs_err(got, want) -> int:
 
 
 @contextlib.contextmanager
-def held_against_plain(torch, checks: dict):
+def held_against_plain(torch, checks: dict, thread=None):
     """While open, every call the topk_rmv engine makes to K1c, K2 or K3
     also runs the kernel's plain version on the call's own arguments, and
     the two must be equal (``torch.equal``). `checks` gets one entry per
     wrapper and input shape: calls and max_abs_err. The wrappers count
-    their launches as always; the plain calls count nothing."""
+    their launches as always; the plain calls count nothing. With
+    `thread` (a ``threading.get_ident()``), only that thread's calls are
+    held; other threads' go straight to the kernels."""
     from antidote_ccrdt_tpu_torch.models import topk_rmv_dense as trd
     from antidote_ccrdt_tpu_torch.ops import kernels
     from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place_plain
 
     def held(name, wrapper, plain, shape):
         def call(*args, **kw):
+            if thread is not None and threading.get_ident() != thread:
+                return wrapper(*args, **kw)
             got = wrapper(*args, **kw)
             want = plain(*args, **kw)
             got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -1752,6 +1814,825 @@ def phase_gossip(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+def ref_values(dense, state, rows: int):
+    """The engine's own value() of the folded snapshot, JSON-shaped: what
+    every served "value" must equal (scripts/serve_demo.py)."""
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+
+    per_key = dense.value(fold_rows(dense, state, range(rows)))[0]
+    return [[[int(i), int(sc)] for i, sc in row] for row in per_key]
+
+
+def serve_mix(rng, n: int, n_keys: int):
+    """scripts/serve_demo.py's query mix: 70 % value, 20 % topk 5, 10 %
+    range [100, 400], keys uniform."""
+    qs = []
+    for _ in range(n):
+        key, pick = rng.randrange(n_keys), rng.random()
+        if pick < 0.7:
+            qs.append({"op": "value", "key": key})
+        elif pick < 0.9:
+            qs.append({"op": "topk", "key": key, "k": 5})
+        else:
+            qs.append({"op": "range", "key": key, "lo": 100, "hi": 400})
+    return qs
+
+
+def audit_answers(frames, truth, eps: float = 1e-9) -> dict:
+    """serve_demo's audit of served frames: each (member, t_send, dt,
+    queries, doc). A "value" must equal the reference of the snapshot at
+    its as_of_seq; a bound must cover the snapshot's true age at send
+    time (one monotonic clock); stale refusals are counted, any other
+    error fails the phase."""
+    out = dict(served=0, stale=0, overloaded=0, violations=0, mismatches=0, other_errors=[], lat=[])
+    for m, t_send, dt, qs, doc in frames:
+        if "error" in doc:
+            if str(doc["error"]).startswith("overloaded"):
+                out["overloaded"] += 1
+            else:
+                out["other_errors"].append(doc["error"])
+            continue
+        out["lat"].append(dt)
+        for q, r in zip(qs, doc["results"]):
+            if "error" in r:
+                if r["error"] == "stale":
+                    out["stale"] += 1
+                else:
+                    out["other_errors"].append(r["error"])
+                continue
+            out["served"] += 1
+            t_rec, vals = truth.get((m, r["as_of_seq"]), (None, None))
+            if t_rec is None:
+                continue  # the start-up snapshot (seq -1)
+            if r["staleness_bound_s"] + eps < t_send - t_rec:
+                out["violations"] += 1
+            if q["op"] == "value" and r["value"] != vals[q["key"]]:
+                out["mismatches"] += 1
+    return out
+
+
+def pct_ms(xs, p: float):
+    xs = sorted(xs)
+    return xs[int(p * (len(xs) - 1))] * 1e3 if xs else None
+
+
+def phase_serve(torch, card: str, dev: str = "cuda") -> dict:
+    """13a: the read plane at the main path's width. Phase 4's engine and
+    seeded batches; after each of SERVE_ROUNDS apply rounds the state is
+    swapped into a ServePlane, materialized (fold, observe, host pull
+    timed apart), and SERVE_CLIENTS threads send frames of SERVE_FRAME
+    queries through `handle()` for SERVE_WINDOW_S; one frame a round goes
+    over a TcpTransport query frame. Returns the launches and the numbers."""
+    import random
+
+    from antidote_ccrdt_tpu_torch import registry, serve
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import DenseReplay, fold_rows
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.net.tcp import TcpTransport, query_peer
+    from antidote_ccrdt_tpu_torch.ops.dense_table import observe_value
+    from antidote_ccrdt_tpu_torch.serve import kernels as serve_kernels
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    dense = registry.make_dense("topk_rmv", n_ids=I, n_dcs=R, size=K, slots_per_id=M, device=dev)
+    rp = DenseReplay(dense, R)
+    gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7), device=dev)
+    batches = [gen.next_batch(B, BR) for _ in range(SERVE_ROUNDS)]  # set-up
+    plane = serve.ServePlane(dense, member="s0")
+    tr = TcpTransport("s0")
+    tr.install_serve(plane)
+    gc.collect()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    truth, frames, split, swap_ms, tcp_frames = {}, [], [], [], 0
+    storm_s = 0.0
+    try:
+        for rnd, ops in enumerate(batches):
+            rp.apply(ops)
+            sync()
+            t0 = time.perf_counter()
+            plane.swap(rp.state, rnd)
+            sync()
+            swap_ms.append((time.perf_counter() - t0) * 1e3)
+            state = plane.replica.live().state
+            # materialize's three parts, each synced, then the whole call.
+            t0 = time.perf_counter()
+            folded = fold_rows(dense, state, range(R))
+            sync()
+            t1 = time.perf_counter()
+            o = dense.observe(folded)
+            sync()
+            t2 = time.perf_counter()
+            table = observe_value(lambda _s: (o.ids, o.scores, o.valid), folded)[0]
+            t3 = time.perf_counter()
+            view = serve_kernels.materialize(dense, state)
+            sync()
+            t4 = time.perf_counter()
+            if view.table != table:
+                raise AssertionError(f"round {rnd}: materialize's view differs from fold + observe + pull")
+            split.append(dict(fold_ms=(t1 - t0) * 1e3, observe_ms=(t2 - t1) * 1e3, pull_ms=(t3 - t2) * 1e3,
+                              materialize_ms=(t4 - t3) * 1e3))
+            truth[("s0", rnd)] = (time.monotonic(), [[[int(i), int(sc)] for i, sc in row] for row in table])
+            del folded, o, view
+
+            stop = threading.Event()
+            got = [[] for _ in range(SERVE_CLIENTS)]
+
+            def client(ci, _rnd=rnd):
+                rng = random.Random(1000 * (_rnd + 1) + ci)
+                while not stop.is_set():
+                    qs = serve_mix(rng, SERVE_FRAME, 1)
+                    # serve_demo's knob: mostly loose, rarely impossible
+                    # (here also each thread's first frame, so that the
+                    # refusal path always runs).
+                    ms = 1e-6 if not got[ci] or rng.random() < 0.02 else 5.0
+                    t_send = time.monotonic()
+                    raw = plane.handle(serve.request_bytes(qs, max_staleness_s=ms))
+                    got[ci].append(("s0", t_send, time.monotonic() - t_send, qs, json.loads(raw)))
+
+            threads = [threading.Thread(target=client, args=(ci,), daemon=True) for ci in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            qs = serve_mix(random.Random(rnd), SERVE_FRAME, 1)
+            t_send = time.monotonic()
+            member, raw = query_peer(tr.address, serve.request_bytes(qs, max_staleness_s=60.0), timeout=30.0)
+            if member != "s0":
+                raise AssertionError(f"the TCP query frame was answered by {member}")
+            got[0].append(("s0", t_send, time.monotonic() - t_send, qs, json.loads(raw)))
+            tcp_frames += 1
+            time.sleep(max(0.0, SERVE_WINDOW_S - (time.perf_counter() - t0)))
+            stop.set()
+            for th in threads:
+                th.join(30.0)
+            storm_s += time.perf_counter() - t0
+            if any(th.is_alive() for th in threads):
+                raise AssertionError(f"round {rnd}: a client thread hung")
+            for g in got:
+                frames.extend(g)
+        peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9
+    finally:
+        tr.close()
+    audit = audit_answers(frames, truth)
+    if audit["violations"] or audit["mismatches"] or audit["other_errors"] or not audit["stale"]:
+        raise AssertionError(f"13a read plane: {dict(audit, lat=len(audit['lat']), other_errors=audit['other_errors'][:3])}")
+    counters = {k: int(v) for k, v in plane.metrics.snapshot()["counters"].items() if k.startswith("serve.")}
+    return dict(rounds=SERVE_ROUNDS, clients=SERVE_CLIENTS, frame=SERVE_FRAME, frames=len(frames),
+                tcp_frames=tcp_frames, served=audit["served"], stale_rejected=audit["stale"],
+                reads_per_s=audit["served"] / max(storm_s, 1e-9), storm_s=storm_s,
+                read_p50_ms=pct_ms(audit["lat"], 0.5), read_p99_ms=pct_ms(audit["lat"], 0.99),
+                materialize=split, swap_ms=swap_ms, state_bytes=sum(
+                    x.numel() * x.element_size() for x in leaves(rp.state)),
+                peak_mem_gb=peak_gb, counters=counters, bound_violations=0, identity_mismatches=0)
+
+
+class FleetOps:
+    """scripts/serve_demo.py's op streams at a given width: replica x at a
+    step from ``default_rng(55 000 (step + 1) + x)``, keys and ids uniform
+    over NK and the id space, scores in [1, 500), dc = x mod D, ts =
+    step B + j + 1, Br removals with a vc on that dc; rows of replicas not
+    owned are padding."""
+
+    def __init__(self, r: int, ids: int, nk: int, b: int, br: int, dev: str):
+        self.r, self.ids, self.nk, self.b, self.br, self.dev = r, ids, nk, b, br, dev
+
+    def batch(self, step: int, owned):
+        import numpy as np
+
+        from antidote_ccrdt_tpu_torch import convert
+        from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
+
+        r, b, br = self.r, self.b, self.br
+        cols = dict(
+            add_key=np.zeros((r, b), np.int32), add_id=np.zeros((r, b), np.int32),
+            add_score=np.zeros((r, b), np.int32), add_dc=np.zeros((r, b), np.int32),
+            add_ts=np.zeros((r, b), np.int32), rmv_key=np.zeros((r, br), np.int32),
+            rmv_id=np.full((r, br), -1, np.int32), rmv_vc=np.zeros((r, br, r), np.int32),
+        )
+        for x in sorted(owned):
+            rng = np.random.default_rng(55_000 * (step + 1) + x)
+            cols["add_key"][x] = rng.integers(0, self.nk, b)
+            cols["add_id"][x] = rng.integers(0, self.ids, b)
+            cols["add_score"][x] = rng.integers(1, 500, b)
+            cols["add_dc"][x] = x % r
+            cols["add_ts"][x] = step * b + np.arange(b) + 1
+            cols["rmv_key"][x] = rng.integers(0, self.nk, br)
+            cols["rmv_id"][x] = rng.integers(0, self.ids, br)
+            cols["rmv_vc"][x, :, x % r] = rng.integers(1, max(2, step * b + 1), br)
+        return convert.from_numpy(TopkRmvOps, cols, self.dev)
+
+    def ingest(self, effects, row: int):
+        """Client effect ops (``serve.effect_from_wire`` tuples) as one
+        batch into replica row `row` (scripts/elastic_demo.py's drill
+        ``ingest``): adds ("add"/"add_r", (id, score, (dc, ts))),
+        removals ("rmv"/"rmv_r", (id, {dc: ts}))."""
+        import numpy as np
+
+        from antidote_ccrdt_tpu_torch import convert
+        from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
+
+        adds = [p for k, p in effects if k in ("add", "add_r")]
+        rmvs = [p for k, p in effects if k in ("rmv", "rmv_r")]
+        r, nb, nr = self.r, max(len(adds), 1), max(len(rmvs), 1)
+        cols = dict(
+            add_key=np.zeros((r, nb), np.int32), add_id=np.zeros((r, nb), np.int32),
+            add_score=np.zeros((r, nb), np.int32), add_dc=np.zeros((r, nb), np.int32),
+            add_ts=np.zeros((r, nb), np.int32), rmv_key=np.zeros((r, nr), np.int32),
+            rmv_id=np.full((r, nr), -1, np.int32), rmv_vc=np.zeros((r, nr, r), np.int32),
+        )
+        for j, (id_, score, (dc, ts)) in enumerate(adds):
+            cols["add_id"][row, j], cols["add_score"][row, j] = int(id_), int(score)
+            cols["add_dc"][row, j], cols["add_ts"][row, j] = int(dc) % r, int(ts)
+        for j, (id_, vc) in enumerate(rmvs):
+            cols["rmv_id"][row, j] = int(id_)
+            for d, ts in vc.items():
+                if 0 <= int(d) < r:
+                    cols["rmv_vc"][row, j, int(d)] = int(ts)
+        return convert.from_numpy(TopkRmvOps, cols, self.dev)
+
+
+def run_fleet(torch, dev: str, geo, *, storm: bool, held=None) -> dict:
+    """scripts/serve_demo.py's served fleet with scripts/write_tier_demo.py's
+    write tier, in one process on `dev`, at width `geo` = (R, I, B, Br).
+
+    Three workers, each a TcpTransport + GossipNode + LagTracker +
+    ServePlane + IngestPlane + ElasticWal (group commit, a temp
+    directory), own a block of replicas. A step, worker by worker: apply
+    its replicas' ops, drain its ingest queue into its lowest replica row
+    (scripts/elastic_demo.py's order: after the drill's ops, before the
+    WAL record), log the step and flush it, publish the whole state and
+    swap it into its plane; then, once every published snapshot has
+    reached every peer (republished if a send was dropped), each worker
+    sweeps and feeds its lag tracker. After its publish at FLEET_KILL_AT
+    the owner of key "k0" fails: its transport closes, its parked writes
+    fail, a probe write fails over, and the survivors adopt its replicas.
+    A fault-free tail republishes until every survivor's digest equals
+    the sequential reference (every replica's ops and every folded client
+    write, in the rows and steps they landed in).
+
+    `storm`: SERVE_CLIENTS query threads and FLEET_WRITERS writer threads
+    run through the steps under FLEET_FAULTS (the demos' flows). Without
+    it the same steps run with no threads, faults or clock reads in any
+    answer: before each step one burst per writer is parked, every ack is
+    read back after the step, and a fixed frame of queries is answered by
+    every worker, so that the answer bytes, certificates and digests of
+    two runs can be compared. With `held`, every K1c, K2 and K3 call of
+    worker w0's turns (main thread) is held against its plain version."""
+    import random
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import registry, serve
+    from antidote_ccrdt_tpu_torch.harness.wal import ElasticWal
+    from antidote_ccrdt_tpu_torch.net.tcp import TcpTransport, query_peer
+    from antidote_ccrdt_tpu_torch.net.transport import GossipNode
+    from antidote_ccrdt_tpu_torch.obs import audit, events as obs_events
+    from antidote_ccrdt_tpu_torch.obs.lag import LagTracker
+    from antidote_ccrdt_tpu_torch.parallel.elastic import sweep
+    from antidote_ccrdt_tpu_torch.serve.ingest import ACK_DURABLE, ACK_REPLICATED, WriteRouter, tcp_write_fn
+    from antidote_ccrdt_tpu_torch.topo import rendezvous_order
+    from antidote_ccrdt_tpu_torch.utils import faults
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.metrics import Metrics
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    r, ids, b, br = geo
+    nk, members = FLEET_NK, list(FLEET_MEMBERS)
+    on_card = torch.device(dev).type == "cuda"
+    main = threading.get_ident()
+    mono = time.monotonic if storm else (lambda: 0.0)
+    dense = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=K, slots_per_id=M, device=dev)
+    gen = FleetOps(r, ids, nk, b, br, dev)
+    victim = rendezvous_order("k0", members)[0]
+    owned = {m: {int(x) for x in blk} for m, blk in zip(members, np.array_split(range(r), len(members)))}
+    alive, dead = list(members), set()
+
+    def wait():
+        if on_card:
+            sync()
+
+    obs_events.reset("clients")
+    tmp = tempfile.mkdtemp(prefix="fleet-wal-")
+    transports = {m: TcpTransport(m, send_timeout=120.0) for m in members}
+    addrs = {m: transports[m].address for m in members}
+    metrics = Metrics()  # the clients' counters
+    step_ms, step_split, fold_log, member_logs = [], [], [], {m: [] for m in members}
+    truth, frames = {}, []
+    frame_errors = [0]
+    wals = {}
+    # Writers stop two steps before the last, so that every parked write
+    # is folded (write_tier_demo stops them before the survivors' final
+    # steps for the same reason); readers stop after the last step.
+    stop, stop_writes = threading.Event(), threading.Event()
+    try:
+        for m in members:
+            for n in members:
+                if n != m:
+                    transports[m].add_peer(n, addrs[n])
+        stores = {m: GossipNode(transports[m]) for m in members}
+        lags = {m: LagTracker(m, clock=mono, mono=mono) for m in members}
+        planes = {m: serve.ServePlane(dense, member=m, metrics=stores[m].metrics, lag_tracker=lags[m], mono=mono)
+                  for m in members}
+        wals.update((m, ElasticWal(tmp, m, dense, "topk_rmv", metrics=stores[m].metrics, durability="group"))
+                    for m in members)
+        applied = {m: {} for m in members}  # m -> {peer: highest snapshot seq swept}
+        ingest_step = dict.fromkeys(members, -1)
+        iplanes = {m: serve.IngestPlane(
+            m, metrics=stores[m].metrics, durable_fn=lambda m=m: int(wals[m].durable_seq),
+            watermarks_fn=lambda m=m: {**{p: int(s) for p, s in applied[m].items()}, m: int(ingest_step[m])},
+            ack_timeout_s=20.0, poll_s=0.01, mono=time.monotonic) for m in members}
+        states = {m: dense.init(r, nk) for m in members}
+        for m in members:
+            transports[m].install_serve(planes[m])
+            transports[m].install_ingest(iplanes[m])
+            planes[m].swap(states[m], -1)
+        deadline = time.monotonic() + 30.0
+        while any(len(stores[m].members()) < len(members) for m in members):
+            for m in members:
+                stores[m].heartbeat()
+            if time.monotonic() > deadline:
+                raise AssertionError("the fleet's start barrier timed out")
+            time.sleep(0.02)
+
+        def member_events(m, fn, *a):
+            """Run fn on this thread; the wal.* and snap.apply events it
+            emitted go to m's flight log (in one process the recorder is
+            shared; a worker process would have written them itself)."""
+            top = max((e["seq"] for e in obs_events.events()), default=-1)
+            out = fn(*a)
+            member_logs[m].extend(dict(e, member=m) for e in obs_events.events()
+                                  if e["seq"] > top and (e["kind"].startswith("wal.") or e["kind"] == "snap.apply"))
+            return out
+
+        def fold_ingest(m, step):
+            row = min(owned[m])
+
+            def fold(ops):
+                effects = [serve.effect_from_wire(o) for o in ops]
+                states[m] = dense.apply_ops(states[m], gen.ingest(effects, row), collect_dominated=False)[0]
+                fold_log.append((step, row, effects))
+            return fold
+
+        def turn(m, step):
+            stores[m].heartbeat()
+            pre = states[m]
+            states[m] = dense.apply_ops(states[m], gen.batch(step, owned[m]), collect_dominated=False)[0]
+            ingest_step[m] = step
+            iplanes[m].drain(step, fold_ingest(m, step))
+            member_events(m, wals[m].log_step, step, sorted(owned[m]), pre, states[m])
+            member_events(m, wals[m].flush)  # durable before visible (elastic_demo's group commit)
+            publish(m, step)
+
+        def publish(m, seq):
+            # Durable before visible: the WAL record precedes the publish,
+            # and the plane swaps the published state (elastic_demo's
+            # order); its watermarks claim the peers swept before.
+            stores[m].publish("topk_rmv", states[m], seq)
+            vals = ref_values(dense, states[m], r)
+            planes[m].swap(states[m], seq)
+            truth[(m, seq)] = (time.monotonic(), vals)
+
+        def settle(m):
+            got, _n = member_events(m, sweep, stores[m], dense, states[m])
+            states[m] = got
+            for peer in members:
+                hi = stores[m].snapshot_seq(peer)
+                if peer != m and hi is not None:
+                    applied[m][peer] = int(hi)
+                    lags[m].observe_published(peer, hi)
+                    lags[m].observe_applied(peer, hi)
+
+        def delivered(step, publishers):
+            """Wait until every alive worker holds every publisher's
+            snapshot at `step`, republishing a lagging one after 3 s
+            (a dropped send)."""
+            t_pub = dict.fromkeys(publishers, time.monotonic())
+            deadline = time.monotonic() + 120.0
+            while True:
+                late = [p for p in publishers if any(
+                    stores[m].snapshot_seq(p) != step for m in alive if m != p)]
+                if not late:
+                    return
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"step {step}: snapshots of {late} never arrived")
+                for p in late:
+                    if time.monotonic() - t_pub[p] > 3.0:
+                        stores[p].publish("topk_rmv", states[p], step)
+                        t_pub[p] = time.monotonic()
+                time.sleep(0.005)
+
+        def one_step(step):
+            t0 = time.perf_counter()
+            for m in list(alive):
+                if m == "w0" and held is not None:
+                    with held_against_plain(torch, held, thread=main):
+                        turn(m, step)
+                else:
+                    turn(m, step)
+            wait()
+            t1 = time.perf_counter()
+            delivered(step, list(alive))
+            t2 = time.perf_counter()
+            for m in list(alive):
+                if m == "w0" and held is not None:
+                    with held_against_plain(torch, held, thread=main):
+                        settle(m)
+                else:
+                    settle(m)
+            wait()
+            split = dict(step=step, turns_ms=(t1 - t0) * 1e3, delivery_ms=(t2 - t1) * 1e3,
+                         sweeps_ms=(time.perf_counter() - t2) * 1e3, frames=len(frames))
+            step_split.append(split)
+            if storm:
+                print(f"[13 fleet step] {json.dumps(split)}", file=sys.stderr, flush=True)
+
+        def verdict(p):
+            return "dead" if p in dead else "alive"
+
+        def failed_worker(_arg):
+            raise RuntimeError("the worker failed")
+
+        # -- the clients -------------------------------------------------
+        # A FleetRouter learns a peer's watermarks only from that peer's
+        # answers, and while every learned set misses a session's floor
+        # it waits without asking anyone again (serve/router.py, as in
+        # the JAX package): its session wait cannot see a peer catch up.
+        # So a read-back asks through a router of its own (breakers
+        # shared), and asks again until FLEET_READBACK_S has passed.
+        board = serve.BreakerBoard(fail_threshold=6)
+
+        def read_router():
+            return serve.FleetRouter(members, serve.tcp_query_fn(addrs), metrics=metrics, verdict_fn=verdict,
+                                     hedge=False, timeout_s=10.0, retries=2, backoff_base_s=0.02,
+                                     session_wait_s=0.0, poll_s=0.002, seed=1, breakers=board)
+        ts_lock, ts_cell = threading.Lock(), [0]
+        sessions = [serve.ClientSession(f"fleet-w{ci}") for ci in range(FLEET_WRITERS)]
+        wsessions = []
+        for ci in range(FLEET_WRITERS):
+            router = WriteRouter(members, tcp_write_fn(addrs), member=f"c{ci}", metrics=metrics,
+                                 verdict_fn=verdict, timeout_s=60.0, retries=2, backoff_base_s=0.02,
+                                 replication_wait_s=60.0, probe_timeout_s=5.0, poll_s=0.02, seed=ci,
+                                 breaker_failures=6)
+            wsessions.append(serve.WriteSession(
+                router, "topk_rmv", session=sessions[ci], session_id=f"fleet-w{ci}", batch_max=999,
+                ack=ACK_REPLICATED if ci == FLEET_WRITERS - 1 else ACK_DURABLE, k=2, m_keep=M,
+                metrics=metrics, device=dev))
+
+        def stage_burst(ci, rng, n_burst):
+            key = "k0" if n_burst == 0 else f"k{rng.randrange(6)}"
+            for id_ in rng.sample(range(min(40, ids)), FLEET_IDS_PER_BURST):
+                for _ in range(FLEET_ADDS_PER_ID):
+                    with ts_lock:
+                        ts_cell[0] += 1
+                        ts = 1_000_000 + ts_cell[0]
+                    wsessions[ci].stage(key, ("add", (id_, rng.randrange(1, 1000), (ci % r, ts))))
+
+        def flush_and_read(ci, st):
+            t0 = time.monotonic()
+            results = wsessions[ci].flush()
+            dt = time.monotonic() - t0
+            for out in results:
+                st["results"] += 1
+                st["lat"].append(dt)
+                if out.get("error") is not None:
+                    st["errors"].append(str(out.get("error")))
+                    continue
+                st["acked"] += 1
+                lvl = str(out.get("level"))
+                st["levels"][lvl] = st["levels"].get(lvl, 0) + 1
+                st["victim_hard"] += int(out.get("origin") == victim and lvl in (ACK_DURABLE, ACK_REPLICATED))
+                st["pending_reads"].append(out["key"])
+            if storm:
+                read_back(ci, st)
+
+        def read_back(ci, st):
+            for key in st["pending_reads"]:
+                deadline = time.monotonic() + FLEET_READBACK_S
+                while True:
+                    rd = read_router().query([{"op": "value", "key": 0}], key=key,
+                                             max_staleness_s=FLEET_STALENESS_S, session=sessions[ci])
+                    if rd.get("error") != "session_unsatisfiable" or time.monotonic() > deadline:
+                        break
+                    st["ryw_waits"] += 1
+                    time.sleep(0.25)
+                if "peer" in rd and "error" not in rd:
+                    st["ryw_ok"] += 1
+                    st["read_docs"].append(json.dumps(rd, sort_keys=True))
+                else:
+                    st["ryw_failed"].append(dict(rd, key=key, floor=sessions[ci].token.floor(), watermarks={
+                        m: planes[m].applied_watermarks(planes[m].replica.live().seq) for m in alive}))
+            st["pending_reads"].clear()
+
+        stats = [dict(results=0, acked=0, levels={}, victim_hard=0, lat=[], errors=[], ryw_ok=0,
+                      ryw_waits=0, ryw_failed=[], pending_reads=[], read_docs=[]) for _ in range(FLEET_WRITERS)]
+        threads = []
+        if storm:
+            faults.install(FLEET_FAULTS, seed=5)
+
+            def writer(ci):
+                rng, n = random.Random(200 + ci), 0
+                while not stop_writes.is_set():
+                    stage_burst(ci, rng, n)
+                    n += 1
+                    flush_and_read(ci, stats[ci])
+
+            def client(ci):
+                rng, n = random.Random(1000 + ci), 0
+                while not stop.is_set():
+                    m = members[rng.randrange(len(members))]
+                    qs = serve_mix(rng, SERVE_FRAME, nk)
+                    ms = 1e-6 if n == 0 or rng.random() < 0.02 else FLEET_STALENESS_S
+                    n += 1
+                    t_send = time.monotonic()
+                    try:
+                        _, raw = query_peer(addrs[m], serve.request_bytes(qs, max_staleness_s=ms), timeout=10.0)
+                        doc = json.loads(raw.decode("utf-8"))
+                    except Exception:  # noqa: BLE001 — a dropped frame, or the failed worker
+                        frame_errors[0] += 1
+                        time.sleep(0.01)
+                        continue
+                    frames.append((m, t_send, time.monotonic() - t_send, qs, doc))
+                    time.sleep(FLEET_QUERY_GAP_S)
+
+            threads = ([threading.Thread(target=writer, args=(ci,), daemon=True) for ci in range(FLEET_WRITERS)]
+                       + [threading.Thread(target=client, args=(ci,), daemon=True) for ci in range(SERVE_CLIENTS)])
+            for th in threads:
+                th.start()
+        rngs = [random.Random(200 + ci) for ci in range(FLEET_WRITERS)]
+        answers = []
+        probe = {}
+        t_drill = time.perf_counter()
+        for step in range(FLEET_STEPS):
+            t_step = time.perf_counter()
+            if step == FLEET_STEPS - 2:
+                stop_writes.set()
+            flushers = []
+            if not storm:
+                # One burst a writer, parked at its owner before the step.
+                for ci in range(FLEET_WRITERS):
+                    stage_burst(ci, rngs[ci], step)
+                    base = sum(iplanes[m].depth() for m in alive)
+                    flushers.append(threading.Thread(target=flush_and_read, args=(ci, stats[ci]), daemon=True))
+                    flushers[-1].start()
+                    deadline = time.monotonic() + 30.0
+                    while sum(iplanes[m].depth() for m in alive) <= base:
+                        if time.monotonic() > deadline:
+                            raise AssertionError(f"step {step}: writer {ci}'s burst was never parked")
+                        time.sleep(0.001)
+            one_step(step)
+            for th in flushers:
+                th.join(120.0)
+                if th.is_alive():
+                    raise AssertionError(f"step {step}: a write never completed")
+            if not storm:
+                for ci in range(FLEET_WRITERS):
+                    read_back(ci, stats[ci])
+                frame = serve.request_bytes(serve_mix(random.Random(step), 64, nk))
+                answers.extend(planes[m].handle(frame) for m in alive)
+            if step == FLEET_KILL_AT:
+                # The hot key's owner fails after its publish: its transport
+                # closes, writes parked at it fail (the fold never ran),
+                # a probe write to its key fails over, and the survivors
+                # adopt its replicas.
+                for install in (transports[victim].install_serve, transports[victim].install_ingest):
+                    install(failed_worker)  # a frame that still reaches it finds its connection closed
+                transports[victim].close()
+                alive.remove(victim)
+                iplanes[victim].drain(step + 1, failed_worker)
+                failovers = metrics.counters.get("router.write_failovers", 0)
+                probe_router = WriteRouter(members, tcp_write_fn(addrs), member="probe", metrics=metrics,
+                                           verdict_fn=verdict, timeout_s=60.0, retries=2, backoff_base_s=0.02,
+                                           poll_s=0.002, seed=99)
+                th = threading.Thread(target=lambda: probe.update(out=probe_router.write(
+                    [["add", [1, 5, [0, 2_000_000]]]], key="k0", ack="applied", write_id="probe:k0")), daemon=True)
+                th.start()
+                deadline = time.monotonic() + 30.0
+                while metrics.counters.get("router.write_failovers", 0) <= failovers:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("the probe write never failed over from the failed owner")
+                    time.sleep(0.005)
+                dead.add(victim)
+                probe["thread"] = th
+                gained = sorted(owned.pop(victim))
+                for j, x in enumerate(gained):
+                    owned[alive[j % len(alive)]].add(x)
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
+        stop.set()
+        for th in threads:
+            th.join(180.0)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("a client thread never finished")
+        probe["thread"].join(60.0)
+        if not (probe.get("out") or {}).get("write_ack"):
+            raise AssertionError(f"the probe write was not acked after failover: {probe.get('out')}")
+        fault_hits = len(faults.trace()) if storm else 0
+        faults.uninstall()
+        drill_s = time.perf_counter() - t_drill
+
+        # The sequential reference: every replica's ops and every folded
+        # client write, in the rows and steps they landed in.
+        ref_state = dense.init(r, nk)
+        for step in range(FLEET_STEPS):
+            ref_state = dense.apply_ops(ref_state, gen.batch(step, range(r)), collect_dominated=False)[0]
+            for s, row, effects in fold_log:
+                if s == step:
+                    ref_state = dense.apply_ops(ref_state, gen.ingest(effects, row), collect_dominated=False)[0]
+        ref = [sorted(map(tuple, row)) for row in ref_values(dense, ref_state, r)]
+        del ref_state
+        digests, tail = {}, 0
+        for tail in range(1, FLEET_TAIL + 1):
+            digests = {m: [sorted(map(tuple, row)) for row in ref_values(dense, states[m], r)] for m in alive}
+            if all(d == ref for d in digests.values()):
+                break
+            seq = FLEET_STEPS + tail
+            for m in alive:
+                stores[m].heartbeat()
+                publish(m, seq)
+            delivered(seq, list(alive))
+            for m in alive:
+                settle(m)
+
+        # -- certify ------------------------------------------------------
+        client_log = obs_events.events("ingest.ack")
+        session_log = sorted(obs_events.events("session.write") + obs_events.events("session.read"),
+                             key=lambda e: e["seq"])
+        folds = obs_events.events("ingest.fold")
+        logs = {f"flight-{m}": member_logs[m] + [e for e in folds if e.get("member") == m] for m in members}
+        logs["client-writes"] = client_log
+        wcert = audit.certify_writes(logs=logs, meta={"arm": "honest", "drill": "served fleet", "killed": victim})
+        scert = audit.certify_sessions(logs={"writer": session_log}, meta={"arm": "cross-tier-ryw",
+                                                                             "drill": "served fleet"})
+        counters = {k: int(v) for k, v in metrics.snapshot()["counters"].items()}
+        serve_counters = {}
+        for m in members:
+            for k, v in stores[m].metrics.snapshot()["counters"].items():
+                if k.startswith(("serve.", "ingest.", "net.queries", "net.writes")):
+                    serve_counters[k] = serve_counters.get(k, 0) + int(v)
+        return dict(victim=victim, survivors=list(alive), digests=digests, ref=ref, tail_rounds=tail, step_split=step_split,
+                    wcert=wcert, scert=scert, stats=stats, frames=frames, frame_errors=frame_errors[0],
+                    truth=truth, answers=answers, counters=counters, serve_counters=serve_counters,
+                    folds=len(fold_log), step_ms=step_ms, drill_s=drill_s,
+                    state_bytes=sum(x.numel() * x.element_size() for x in leaves(states[alive[0]])),
+                    fault_hits=fault_hits)
+    finally:
+        stop.set()
+        stop_writes.set()
+        faults.uninstall()
+        for t in transports.values():
+            t.close()
+        for w in wals.values():
+            w.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        obs_events.reset("?")
+
+
+def check_fleet(out: dict, what: str, storm: bool) -> dict:
+    """The served fleet's gates. Returns the audit of its answers."""
+    from antidote_ccrdt_tpu_torch.obs.audit import verify_certificate
+
+    bad = {m: d for m, d in out["digests"].items() if d != out["ref"]}
+    if not out["ref"] or bad or len(out["digests"]) != len(FLEET_MEMBERS) - 1:
+        raise AssertionError(f"{what}: survivors {sorted(bad)} differ from the sequential reference "
+                             f"after {out['tail_rounds']} tail rounds")
+    acked = sum(st["acked"] for st in out["stats"])
+    ryw = sum(st["ryw_ok"] for st in out["stats"])
+    errors = [e for st in out["stats"] for e in st["errors"] + st["ryw_failed"]]
+    if not acked or ryw != acked or errors:
+        raise AssertionError(f"{what}: {acked} writes acked, {ryw} read back by their sessions; errors {errors[:4]}")
+    levels = {}
+    for st in out["stats"]:
+        for lvl, n in st["levels"].items():
+            levels[lvl] = levels.get(lvl, 0) + n
+    if not (levels.get("durable") and levels.get("replicated_to_k")):
+        raise AssertionError(f"{what}: hard ack levels not both exercised: {levels}")
+    w, s = out["wcert"], out["scert"]
+    if not (w["ok"] and verify_certificate(w) and w["n_acks"] > 0):
+        raise AssertionError(f"{what}: write certificate {json.dumps(w)[:600]}")
+    if not (s["ok"] and verify_certificate(s) and s["n_writes"] > 0 and s["n_reads"] > 0):
+        raise AssertionError(f"{what}: session certificate {json.dumps(s)[:600]}")
+    zero = [k for k in FLEET_NONZERO if not out["counters"].get(k)]
+    if zero:
+        raise AssertionError(f"{what}: counters never lit: {zero}")
+    audit = audit_answers(out["frames"], out["truth"])
+    if audit["violations"] or audit["mismatches"] or audit["other_errors"]:
+        raise AssertionError(f"{what}: {audit['violations']} bound violations, {audit['mismatches']} identity "
+                             f"mismatches, errors {audit['other_errors'][:3]}")
+    if storm and not (audit["served"] and audit["stale"] and sum(st["victim_hard"] for st in out["stats"])):
+        raise AssertionError(f"{what}: served {audit['served']}, stale {audit['stale']}, victim hard acks "
+                             f"{sum(st['victim_hard'] for st in out['stats'])}")
+    return dict(audit, levels=levels, acked=acked)
+
+
+def phase_fleet(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 13: the read plane at the main path's width (13a), the served
+    fleet drill (13b), and the drill at FLEET_SMALL on the CPU and the
+    card with equal answer bytes, certificates and digests. Returns the
+    phase's K1c, K2 and K3 launches (13a and 13b)."""
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+
+    wrappers = {"scatter_max_rows_copy": kernels.scatter_max_rows_copy, "delta_place": delta_place,
+                "sort_slots": kernels.sort_slots}
+    kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
+    t_phase = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    read = phase_serve(torch, card, dev)
+    read_launches = {n: w.launches for n, w in wrappers.items()}
+    require_launches(read_launches, wrappers, "the read plane's rounds and materializations")
+    log("13 serve", card=card, replicas=R, ids=I, adds=B, removals=BR, **read, launches=read_launches)
+
+    gc.collect()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    held = {}
+    t0 = time.perf_counter()
+    out = run_fleet(torch, dev, FLEET, storm=True, held=held)
+    fleet_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9
+    launches = {n: w.launches for n, w in wrappers.items()}
+    require_launches({n: launches[n] - read_launches[n] for n in wrappers}, wrappers, "the served fleet")
+    print(f"[13 fleet drill] {json.dumps(dict(step_ms=out['step_ms'], drill_s=out['drill_s']))}",
+          file=sys.stderr, flush=True)
+    audit = check_fleet(out, "the served fleet", storm=True)
+    held_calls = {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in wrappers}
+    if not all(held_calls.values()) or any(v["max_abs_err"] for v in held.values()):
+        raise AssertionError(f"w0's held calls {held_calls}: {held}")
+    lat = [x for st in out["stats"] for x in st["lat"]]
+    log("13 fleet", card=card, members=list(FLEET_MEMBERS), geometry=dict(zip(("R", "I", "B", "Br"), FLEET)),
+        keys=FLEET_NK, steps=FLEET_STEPS, killed=out["victim"], kill_after_step=FLEET_KILL_AT,
+        state_bytes=out["state_bytes"], step_ms=out["step_ms"], step_split=out["step_split"], drill_s=out["drill_s"],
+        tail_rounds=out["tail_rounds"], frames=len(out["frames"]), frame_errors=out["frame_errors"],
+        served=audit["served"], stale_rejected=audit["stale"], reads_per_s=audit["served"] / out["drill_s"],
+        read_p50_ms=pct_ms(audit["lat"], 0.5), read_p99_ms=pct_ms(audit["lat"], 0.99),
+        bound_violations=audit["violations"], identity_mismatches=audit["mismatches"],
+        writes_acked=audit["acked"], acks_by_level=audit["levels"], write_results=sum(
+            st["results"] for st in out["stats"]), write_p50_ms=pct_ms(lat, 0.5), write_p99_ms=pct_ms(lat, 0.99),
+        victim_hard_acks=sum(st["victim_hard"] for st in out["stats"]), ryw_reads=sum(
+            st["ryw_ok"] for st in out["stats"]), ryw_rereads=sum(st["ryw_waits"] for st in out["stats"]),
+        client_writes_folded=out["folds"],
+        write_certificate=dict(ok=out["wcert"]["ok"], n_acks=out["wcert"]["n_acks"],
+                               origins=out["wcert"]["origins"]),
+        session_certificate={k: out["scert"].get(k) for k in ("ok", "n_sessions", "n_reads", "n_writes",
+                                                              "n_violations")},
+        client_counters={k: v for k, v in out["counters"].items() if k.startswith(("router.", "write_session."))},
+        serve_counters=out["serve_counters"], fault_hits=out["fault_hits"], launches={
+            n: launches[n] - read_launches[n] for n in wrappers}, held_against_plain=held,
+        peak_mem_gb=peak_gb, fleet_s=fleet_s)
+    del out
+    gc.collect()
+
+    # The same flow at the reduced width, plain versions on the CPU
+    # against the kernels on the card: equal answer bytes, certificates
+    # (one frozen wall clock) and digests.
+    small = {}
+    for d in ("cpu", dev):
+        with frozen_wall_clock():
+            small[d] = run_fleet(torch, d, FLEET_SMALL, storm=False)
+        check_fleet(small[d], f"the reduced fleet on {d}", storm=False)
+    cpu, on_card = small["cpu"], small[dev]
+    for key in ("answers", "digests", "ref"):
+        if cpu[key] != on_card[key]:
+            raise AssertionError(f"the reduced fleet's {key} differ between the CPU and the card")
+    for key in ("wcert", "scert"):
+        if json.dumps(cpu[key], sort_keys=True) != json.dumps(on_card[key], sort_keys=True):
+            raise AssertionError(f"the reduced fleet's {key} differ between the CPU and the card")
+    reads = [d for st in cpu["stats"] for d in st["read_docs"]]
+    if reads != [d for st in on_card["stats"] for d in st["read_docs"]]:
+        raise AssertionError("the reduced fleet's read-your-writes answers differ between the CPU and the card")
+    log("13 reduced", card=card, geometry=dict(zip(("R", "I", "B", "Br"), FLEET_SMALL)), equal_cpu_card=True,
+        answer_frames=len(cpu["answers"]), ryw_reads=len(reads), writes_acked=sum(
+            st["acked"] for st in cpu["stats"]), write_signature=cpu["wcert"]["signature"][:16],
+        session_signature=cpu["scert"]["signature"][:16], phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+@contextlib.contextmanager
+def frozen_wall_clock(at: float = 1_700_000_000.0):
+    """The port's flight recorder and certifier read one fixed wall clock
+    (their event and certificate stamps), for runs whose bytes are
+    compared."""
+    import types
+
+    from antidote_ccrdt_tpu_torch.obs import audit, events as obs_events
+
+    fake = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time) if not k.startswith("_")})
+    fake.time = lambda: at
+    saved = [(mod, mod.time) for mod in (audit, obs_events)]
+    try:
+        for mod, _ in saved:
+            mod.time = fake
+        yield
+    finally:
+        for mod, real in saved:
+            mod.time = real
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -1783,6 +2664,7 @@ def main() -> int:
     del topk_rmv
     durable = phase_durable_host(torch, card)
     gossip = phase_gossip(torch, card)
+    fleet = phase_fleet(torch, card)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -1808,7 +2690,8 @@ def main() -> int:
                   "sort_slots_block": "wide rows (phase 8)", "sort_slots_global": "wide rows (phase 8)"}
     by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in sources}
     for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
-                      ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip)):
+                      ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
+                      ("served fleet (phase 13)", fleet)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

@@ -675,3 +675,32 @@ def test_chaos_drill_on_card_equals_cpu(cuda):
     for m, st in card["states"].items():
         assert st.slot_score.is_cuda and same_leaves(st, cpu["states"][m]), m
     assert card["sweep_launches"]["sort_slots"] > 0
+
+
+@pytest.mark.cuda
+def test_served_fleet_on_card_equals_cpu(cuda):
+    """chip_smoke.py phase 13's served fleet at its reduced width
+    (``FLEET_SMALL``; no client threads, no faults, frozen clocks): every
+    gate of the drill holds on both devices, the card's answer bytes,
+    read-backs, certificates and digests equal the CPU run's, and the card
+    run launched K1c, K2 and K3."""
+    import json
+
+    import chip_smoke
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+
+    wrappers = {"K1c": kernels.scatter_max_rows_copy, "K2": delta_place, "K3": kernels.sort_slots}
+    runs, launched = {}, {}
+    for dev in ("cpu", cuda.type):
+        before = {n: w.launches for n, w in wrappers.items()}
+        with chip_smoke.frozen_wall_clock():
+            runs[dev] = chip_smoke.run_fleet(torch, dev, chip_smoke.FLEET_SMALL, storm=False)
+        chip_smoke.check_fleet(runs[dev], dev, storm=False)
+        launched[dev] = {n: w.launches - before[n] for n, w in wrappers.items()}
+    cpu, card = runs["cpu"], runs[cuda.type]
+    assert not any(launched["cpu"].values()) and all(launched[cuda.type].values()), launched
+    for key in ("answers", "digests", "ref"):
+        assert card[key] == cpu[key], key
+    for key in ("wcert", "scert"):
+        assert json.dumps(card[key], sort_keys=True) == json.dumps(cpu[key], sort_keys=True), key
+    assert [st["read_docs"] for st in card["stats"]] == [st["read_docs"] for st in cpu["stats"]]

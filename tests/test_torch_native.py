@@ -13,7 +13,13 @@ use, and a build that fails fails these tests.
   ``tests/test_end_to_end.py``: every replica equals the scalar engine fed
   the same delivered stream, and the dense state equals JAX's run of the
   same drains after every round.
+
+The JAX bindings used here load libraries built by this module's own
+fixture into a private directory, never ``native/build/``, which other
+test processes may be writing at the same moment.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -31,7 +37,25 @@ from antidote_ccrdt_tpu_torch.models import wordcount as pwc
 from antidote_ccrdt_tpu_torch.models.topk_rmv import TopkRmvScalar
 from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
 from antidote_ccrdt_tpu_torch.ops import _build
-from torch_twins import assert_tree, port_copy
+from torch_twins import assert_tree, build_native_libraries, port_copy
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_private(tmp_path_factory):
+    """Point the JAX package's native host and tokenizer bindings at
+    libraries built for this process alone (no Makefile there, so the
+    tokenizer's ``make`` is skipped), from a clean load; restore every
+    name at teardown, so a JAX test file run later on the same worker
+    sees its bindings as they were. A failed g++ errors the tests."""
+    out = tmp_path_factory.mktemp("jax_native")
+    libs = build_native_libraries(str(out))
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((jnh, "ccrdt_host"), (jnt, "ccrdt_tokenizer")):
+            mp.setattr(mod, "_NATIVE_DIR", str(out))
+            mp.setattr(mod, "_LIB_PATH", libs[name])
+            mp.setattr(mod, "_lib", None)
+            mp.setattr(mod, "_build_error", None)
+        yield libs
 
 # The JAX files skip when the toolchain is missing; here a failed build
 # fails the test.
@@ -61,6 +85,16 @@ def test_native_libraries_build_into_the_package():
     assert pnh.build_error() is None and pnt.build_error() is None
     for name in ("ccrdt_host", "ccrdt_tokenizer"):
         assert (_build.BUILD_DIR / f"lib{name}.so").exists()
+
+
+def test_jax_bindings_load_the_private_build(jax_native_private):
+    """The JAX bindings this module compares with load this process's own
+    libraries, never a ``native/build/`` file another process may be
+    writing."""
+    for mod, name in ((jnh, "ccrdt_host"), (jnt, "ccrdt_tokenizer")):
+        assert mod.available(), mod.build_error()
+        assert mod._ensure_lib()._name == jax_native_private[name] == mod._LIB_PATH
+        assert not os.path.exists(os.path.join(mod._NATIVE_DIR, "Makefile"))
 
 
 def submit_same(hosts, seed, D, n_ops, rmv_frac):

@@ -16,8 +16,9 @@ from antidote_ccrdt_tpu_torch.ops.compaction import compact_effect_ops
 
 REPO = Path(__file__).resolve().parent.parent
 # Modules of the compaction and MONOID slice, the validation module, the
-# durable host path (its nine modules and the pager stub) and the gossip
-# plane; the walk must import each.
+# durable host path (its nine modules and the pager stub), the gossip
+# plane, and the serve plane with the audit certifiers; the walk must
+# import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -28,6 +29,9 @@ NEW_MODULES = [
     "topo", "topo.zones", "topo.anchor", "topo.codec", "topo.router", "bridge", "bridge.protocol",
     "net", "net.membership", "net.transport", "net.sim", "net.tcp", "obs.lag", "obs.export",
     "obs.rtrace", "obs.http", "obs.profile", "obs.devprof", "parallel.elastic",
+    # the serve plane and the audit certifiers
+    "serve", "serve.cache", "serve.routing_common", "serve.session", "serve.replica", "serve.kernels",
+    "serve.plane", "serve.router", "serve.ingest", "serve.write_session", "obs.audit",
 ]
 
 
@@ -64,6 +68,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         registry.law_fixture("average")(0, 2)
     assert compact_effect_ops("average", [("add", 1)], device="cpu") == [("add", (1, 1))]
+    # The write session compacts on a device, the law checker builds its
+    # fixtures on one: neither falls back to the CPU quietly.
+    from antidote_ccrdt_tpu_torch.obs.audit import LawChecker
+    from antidote_ccrdt_tpu_torch.serve import WriteRouter, WriteSession
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WriteSession(WriteRouter(["w0"], lambda *a: b""), "topk_rmv")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LawChecker(types=["average"], pairs=2).run()
+    assert WriteSession(WriteRouter(["w0"], lambda *a: b""), "topk_rmv", device="cpu").device.type == "cpu"
     # An explicit CPU device is the one way to the plain path.
     assert registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, device="cpu").device.type == "cpu"
 

@@ -165,16 +165,28 @@ def test_tcp_anchor_and_delta_cross_between_the_packages(sender_pkg):
 
 
 def test_tcp_query_without_a_handler_raises_for_the_serve_plane():
-    """The JAX package answers a query that no handler serves with the
-    serve plane's error document; the port has no serve plane, so the
-    handler raises NotImplementedError and the querier sees the
-    connection close. An installed handler answers as in JAX."""
-    t = ptcp.TcpTransport("s")
+    """A query or a write that no handler serves gets the serve plane's
+    error document ("no serve plane", "no ingest plane"), byte-equal to
+    the JAX package's reply, each package querying its own transport and
+    the other's. An installed handler answers as in JAX. (The name dates
+    from before the port had a serve plane, when these branches raised.)"""
+    pt, jt = ptcp.TcpTransport("s"), jtcp.TcpTransport("s")
     try:
-        with pytest.raises((ConnectionError, OSError)):
-            ptcp.query_peer(t.address, b'{"q":1}', timeout=2.0)
-        t.install_serve(lambda payload: payload[::-1])
-        assert ptcp.query_peer(t.address, b"abc", timeout=2.0) == ("s", b"cba")
-        assert t.metrics.counters["net.queries"] == 2
+        for query in (ptcp.query_peer, jtcp.query_peer):
+            got = [query(t.address, b'{"q":1}', timeout=2.0) for t in (pt, jt)]
+            assert got[0] == got[1] == ("s", b'{"error":"no serve plane","member":"s"}\n')
+        for write in (ptcp.write_peer, jtcp.write_peer):
+            got = [write(t.address, b'{"w":1}', timeout=2.0) for t in (pt, jt)]
+            assert got[0] == got[1] == ("s", b'{"error":"no ingest plane","member":"s"}\n')
+        for t in (pt, jt):
+            t.install_serve(lambda payload: payload[::-1])
+            t.install_ingest(lambda payload: payload.upper())
+        for query, write in ((ptcp.query_peer, ptcp.write_peer), (jtcp.query_peer, jtcp.write_peer)):
+            for t in (pt, jt):
+                assert query(t.address, b"abc", timeout=2.0) == ("s", b"cba")
+                assert write(t.address, b"abc", timeout=2.0) == ("s", b"ABC")
+        for t in (pt, jt):
+            assert (t.metrics.counters["net.queries"], t.metrics.counters["net.writes"]) == (4, 4)
     finally:
-        t.close()
+        pt.close()
+        jt.close()

@@ -2,6 +2,8 @@
 one seed in both packages, and exact comparisons between them."""
 
 import dataclasses
+import os
+import subprocess
 
 import numpy as np
 import torch
@@ -341,6 +343,10 @@ class torch_jnp:
     def zeros(shape, dtype=None):
         return torch.zeros(shape, dtype=dtype)
 
+    @staticmethod
+    def full(shape, fill_value, dtype=None):
+        return torch.full(shape, fill_value, dtype=dtype)
+
 
 def leaf_bytes(state):
     """(dtype, shape, bytes) of every leaf in order: equal for equal
@@ -412,3 +418,37 @@ def leaves_of(state):
     from antidote_ccrdt_tpu_torch.utils.tree import leaves
 
     return leaves(state)
+
+
+# native/Makefile's flags: CXXFLAGS, then -pthread for the tokenizer, then -shared.
+NATIVE_FLAGS = {"ccrdt_host": ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"),
+                "ccrdt_tokenizer": ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread", "-shared")}
+
+
+def build_native_libraries(out_dir):
+    """``native/ccrdt_host.cpp`` and ``native/ccrdt_tokenizer.cpp`` compiled
+    with g++ and native/Makefile's flags into `out_dir` (a directory of
+    this process's own), each written through a temp file and
+    `os.replace`: {name: path of lib<name>.so}. A failed build raises
+    `subprocess.CalledProcessError` with the compiler's output.
+
+    The JAX package's bindings build into the shared ``native/build/``
+    with ``make`` and load whatever file is there, so a test process can
+    load a library another process's g++ is still writing; a test that
+    points them at this directory never does."""
+    native = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+    out = {}
+    for name, flags in NATIVE_FLAGS.items():
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *flags, "-o", tmp, os.path.join(native, f"{name}.cpp")],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, lib)
+        out[name] = lib
+    return out
+
+
+def serve_engine():
+    """``tests/test_serve.py``'s engine (I = 8 ids, 2 DCs, K = 10, M = 2)
+    in the port, on the device the caller's region gives it."""
+    return registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, size=10, slots_per_id=2)
