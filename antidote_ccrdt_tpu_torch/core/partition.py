@@ -153,14 +153,27 @@ def digest_entries(
     shard can produce exactly the slice of the vector it owns; slices
     stitched back together are bitwise equal to the full vector because
     they ARE the full vector's entries. Each leaf is read to the host
-    once, however many entries are asked for."""
+    once, however many entries are asked for: only the asked
+    partitions' id-slices of an item leaf (gathered on its device) and
+    the whole leaves only when the meta entry is asked."""
     items, whole, extent = _item_plan(state)
+    parts = [int(p) for p in parts]
     id_parts = part_of(np.arange(extent), P) if extent else np.zeros(0, np.int32)
-    host_items = [(path, as_numpy(leaf), axis) for path, leaf, axis in items]
-    host_whole = [(path, np.ascontiguousarray(as_numpy(leaf))) for path, leaf in whole]
+    sel = np.nonzero(np.isin(id_parts, [p for p in parts if p != P]))[0]
+    if sel.size < id_parts.size:
+        id_parts = id_parts[sel]
+        host_items = [
+            (path, as_numpy(leaf.index_select(axis, torch.from_numpy(sel).to(leaf.device))), axis)
+            for path, leaf, axis in items
+        ]
+    else:
+        host_items = [(path, as_numpy(leaf), axis) for path, leaf, axis in items]
+    host_whole = (
+        [(path, np.ascontiguousarray(as_numpy(leaf))) for path, leaf in whole]
+        if P in parts else []
+    )
     out: Dict[int, int] = {}
     for part in parts:
-        part = int(part)
         crc = 0
         if part == P:
             for path, arr in host_whole:

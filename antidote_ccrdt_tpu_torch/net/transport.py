@@ -627,11 +627,13 @@ class GossipNode:
         digest changed since the last anchor (ALL partitions on the first;
         the psnap store is cumulative, so it is complete from then on).
         With a `mesh.MeshPlan` the JAX package produces them shard by
-        shard, and with a `core.pager.PartitionPager` it serves demoted
-        partitions from the pager's stored CCPT blobs. Neither plane is
-        ported yet (ROADMAP A10, A11): either argument raises
-        `NotImplementedError`. Returns the digest vector, or None when
-        the medium has no partition surface."""
+        shard; that plane is not ported yet (ROADMAP A10): `plan` raises
+        `NotImplementedError`. With a `core.pager.PartitionPager`,
+        digests and psnaps for demoted partitions come from the pager's
+        stored CCPT blobs — the transfer format is the storage format,
+        so a cold partition is served without hydrating. Returns the
+        digest vector, or None when the medium has no partition
+        surface."""
         from ..core import partition as pt
         from ..core import serial
 
@@ -639,15 +641,14 @@ class GossipNode:
             raise NotImplementedError(
                 "publish_partitioned(plan=): the mesh plane (mesh/gossip) is not ported yet"
             )
-        if pager is not None:
-            raise NotImplementedError(
-                "publish_partitioned(pager=): the pager plane (core/pager) is not ported yet"
-            )
         pub_dig = getattr(self.transport, "publish_digest", None)
         pub_ps = getattr(self.transport, "publish_psnap", None)
         if pub_dig is None or pub_ps is None:
             return None
-        vec = pt.state_digests(state, P)
+        if pager is not None and pager.has_cold():
+            vec = pager.digest_vector(state)
+        else:
+            vec = pt.state_digests(state, P)
         cache = getattr(self, "_last_digests", None)
         if cache is None:
             cache = self._last_digests = {}
@@ -658,10 +659,13 @@ class GossipNode:
             else pt.divergent_parts(prev, vec)
         )
         for part in changed:
-            payload = serial.dumps_dense(
-                f"{name}_psnap", pt.restrict_psnap(dense, state, part, P)
-            )
-            blob = pt.encode_psnap_blob(seq, part, payload)
+            if pager is not None:
+                blob = pager.psnap_blob(state, seq, part)
+            else:
+                payload = serial.dumps_dense(
+                    f"{name}_psnap", pt.restrict_psnap(dense, state, part, P)
+                )
+                blob = pt.encode_psnap_blob(seq, part, payload)
             self.metrics.count("net.psnap_publishes")
             pub_ps(part, blob)
         dig_blob = pt.encode_digest_blob(seq, vec)

@@ -13,10 +13,10 @@ ordinary engine join applies it. Chaining is the one obligation: a
 receiver may apply member M's delta seq k only if it has applied M's full
 state or deltas through seq k-1.
 
-The changed-row mask is computed on the state's device; the row gather
-and the expansion run on the host in numpy, as in JAX (the delta is
-serialized to bytes right after, and its row count differs on every
-publish). Table deltas are dicts keyed by JAX's leaf path strings
+The changed-row mask is computed on the state's device and the row
+gather runs on the host in numpy, as in JAX (the delta is serialized to
+bytes right after, and its row count differs on every publish); a
+topk_rmv delta expands on the engine's device. Table deltas are dicts keyed by JAX's leaf path strings
 (``.counts``), so a delta cut by one package applies in the other.
 """
 
@@ -84,34 +84,34 @@ def state_delta(dense: Any, prev: Any, cur: Any) -> TopkRmvDelta:
 def expand_delta(dense: Any, delta: TopkRmvDelta) -> Any:
     """Lift a delta to a full-shape state on the engine's device whose
     untouched rows are the join identity, so `dense.merge(state,
-    expand_delta(...))` applies it. Host-side scatter into identity
-    arrays (numpy), then one copy to the device."""
+    expand_delta(...))` applies it: identity tables filled on the device
+    and the delta's rows written into them. Rows index as numpy does (a
+    negative row counts from the end, a row past either end raises
+    IndexError), checked on the host before any device write."""
     from ..models.topk_rmv_dense import TopkRmvDenseState
     from ..ops.dense_table import NEG_INF
 
     R, NK, D = delta.vc.shape
     I, M = dense.I, dense.M
+    dev = dense.device
+    n = R * NK * I
     rows = as_numpy(delta.rows).astype(np.int64)
-    score = np.full((R * NK * I, M), NEG_INF, np.int32)
-    dc = np.zeros((R * NK * I, M), np.int32)
-    ts = np.zeros((R * NK * I, M), np.int32)
-    rvc = np.zeros((R * NK * I, D), np.int32)
-    score[rows] = as_numpy(delta.slot_score)
-    dc[rows] = as_numpy(delta.slot_dc)
-    ts[rows] = as_numpy(delta.slot_ts)
-    rvc[rows] = as_numpy(delta.rmv_vc)
+    if rows.size and (rows.min() < -n or rows.max() >= n):
+        raise IndexError(f"delta rows outside [-{n}, {n})")
+    at = torch.from_numpy(rows % n if rows.size else rows).to(dev)
 
-    def put(a, shape):
-        return torch.from_numpy(a.reshape(shape)).to(dense.device)
+    def put(fill, src, width):
+        out = torch.full((n, width), fill, dtype=torch.int32, device=dev)
+        out[at] = src.to(dev)
+        return out.view(R, NK, I, width)
 
-    shape4 = (R, NK, I, M)
     return TopkRmvDenseState(
-        slot_score=put(score, shape4),
-        slot_dc=put(dc, shape4),
-        slot_ts=put(ts, shape4),
-        rmv_vc=put(rvc, (R, NK, I, D)),
-        vc=torch.as_tensor(as_numpy(delta.vc)).to(dense.device),
-        lossy=torch.as_tensor(as_numpy(delta.lossy)).to(dense.device),
+        slot_score=put(NEG_INF, delta.slot_score, M),
+        slot_dc=put(0, delta.slot_dc, M),
+        slot_ts=put(0, delta.slot_ts, M),
+        rmv_vc=put(0, delta.rmv_vc, D),
+        vc=delta.vc.to(dev),
+        lossy=delta.lossy.to(dev),
     )
 
 

@@ -51,10 +51,12 @@ Port of ``antidote_ccrdt_tpu/parallel/elastic.py``: the same blobs,
 counters, events and draws. Every join goes through the port's
 ``parallel.delta.apply_any_delta`` and the engine's ``merge``, so on a
 card a sweep runs the engine's kernels (K3 for topk_rmv) on states that
-``core.serial.loads_dense`` decoded onto the card. The device-sharded
-plane (``mesh_plan=``) and the out-of-core pager (``pager=``) are not
-ported yet (ROADMAP A10, A11): passing either raises
-`NotImplementedError`.
+``core.serial.loads_dense`` decoded onto the card. With a
+``core.pager.PartitionPager`` (``pager=``), anchors publish the logical
+state, digests and psnaps of cold partitions come from the pager, and
+payloads touching cold partitions fold host-side. The device-sharded
+plane (``mesh_plan=``) is not ported yet (ROADMAP A10): passing it
+raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -71,12 +73,10 @@ from ..utils.metrics import Metrics
 from .delta import empty_delta  # noqa: F401 — part of this module's API
 
 
-def _not_ported(where: str, mesh_plan: Any = None, pager: Any = None) -> None:
-    """Raise for the planes the port does not have yet."""
+def _not_ported(where: str, mesh_plan: Any = None) -> None:
+    """Raise for the plane the port does not have yet."""
     if mesh_plan is not None:
         raise NotImplementedError(f"{where}(mesh_plan=): the mesh plane (mesh/) is not ported yet")
-    if pager is not None:
-        raise NotImplementedError(f"{where}(pager=): the pager plane (core/pager) is not ported yet")
 
 
 # Ingest fast-path knobs. CCRDT_INGEST_COMPACT=0 is the bit-identical
@@ -135,7 +135,7 @@ class DeltaPublisher:
         from ..core.behaviour import MergeKind
         from .monoid import MonoidLift
 
-        _not_ported("DeltaPublisher", mesh_plan, pager)
+        _not_ported("DeltaPublisher", mesh_plan)
         if getattr(dense, "merge_kind", None) == MergeKind.MONOID:
             dense = MonoidLift(dense)
         self.store = store
@@ -163,6 +163,14 @@ class DeltaPublisher:
         # None = whole-instance gossip only (the legacy path, and what a
         # mixed-version fleet degrades to).
         self.partitions = partitions
+        # core/pager.PartitionPager: under out-of-core paging the device
+        # state is only the HOT slice of the logical state. Anchors then
+        # publish `pager.full_state` (the logical join) so whole-snapshot
+        # consumers see no hole, and the partition surface serves cold
+        # digests/psnaps straight from the pager's stored CCPT blobs.
+        # Deltas are untouched: they are cut device-side, where cold
+        # slices never change between publishes. None = all-resident.
+        self.pager = pager
         self.seq = -1
         self._prev: Any = None
         self._serial = serial
@@ -270,12 +278,18 @@ class DeltaPublisher:
             # a peer that already swept the anchor skips the older
             # frame seqs by cursor, so the join is unchanged.
             self.flush_wire()
+            # Under paging the anchor must carry the LOGICAL state —
+            # a device-only snapshot would publish identity holes where
+            # the cold partitions live.
+            pub_state = state
+            if self.pager is not None and self.pager.has_cold():
+                pub_state = self.pager.full_state(state)
             if obs_spans.ACTIVE:
                 # Full-snapshot anchor: serialize + hand to the medium.
                 with obs_spans.span("round.snapshot", seq=self.seq):
-                    self.store.publish(self.name, state, self.seq)
+                    self.store.publish(self.name, pub_state, self.seq)
             else:
-                self.store.publish(self.name, state, self.seq)
+                self.store.publish(self.name, pub_state, self.seq)
             if self.partitions:
                 # Partition artifacts ride the anchor cadence: the full
                 # snapshot stays published (legacy peers and the
@@ -283,6 +297,7 @@ class DeltaPublisher:
                 # psnaps go alongside.
                 self.store.publish_partitioned(
                     self.name, state, self.seq, self.dense, self.partitions,
+                    pager=self.pager,
                 )
             self._wire_prev = state
             self._last_state = state
@@ -428,7 +443,7 @@ class PartialAntiEntropy:
     ):
         from ..core import partition as pt
 
-        _not_ported("PartialAntiEntropy", mesh_plan, pager)
+        _not_ported("PartialAntiEntropy", mesh_plan)
         self.store = store
         self.partitions = partitions if partitions else pt.n_partitions()
         self.max_tries = max(1, max_tries)
@@ -441,8 +456,16 @@ class PartialAntiEntropy:
         # wedge clock (note_repair_progress) — this resync loop IS the
         # repair whose absence the wedged-divergence alarm detects.
         self.watchdog = watchdog
+        # core/pager.PartitionPager: digest vectors come from
+        # `pager.digest_vector` (device entries for hot partitions,
+        # cached CCPT digests for cold) and fetched psnaps targeting
+        # cold partitions fold host-side instead of hydrating — partial
+        # anti-entropy never blocks on a page-in. None = all-resident.
+        self.pager = pager
 
     def _own_vec(self, state: Any) -> Any:
+        if self.pager is not None and self.pager.has_cold():
+            return self.pager.digest_vector(state)
         return self._pt.state_digests(state, self.partitions)
 
     def try_resync(
@@ -497,7 +520,12 @@ class PartialAntiEntropy:
                 continue  # not served yet (push media) — next sweep
             ps_seq, payload = r
             try:
-                state = apply_any_delta(dense, state, payload)
+                if self.pager is not None:
+                    # Cold-targeting psnaps fold host-side (or queue);
+                    # hot ones join on device — never a forced page-in.
+                    state = self.pager.apply_delta(state, payload)
+                else:
+                    state = apply_any_delta(dense, state, payload)
             except Exception:  # noqa: BLE001 — total, same as sweep
                 continue
             fetched += 1
@@ -550,16 +578,16 @@ def sweep_deltas(
 
     With `pager` (a `core.pager.PartitionPager`), deltas and snapshots
     targeting cold partitions fold host-side through the pager instead
-    of joining on device — the sweep never forces a hydration. The
-    pager is not ported yet: `pager` raises `NotImplementedError`."""
+    of joining on device — the sweep never forces a hydration."""
     from .delta import apply_any_delta, delta_in_bounds, like_delta_for
 
-    _not_ported("sweep_deltas", pager=pager)
     dense, state = _resolve_monoid(dense, state, "sweep_deltas")
     like_delta = like_delta_for(dense, state)
     stats = {"deltas": 0, "fulls": 0, "skipped": 0}
 
     def _apply(st: Any, delta: Any) -> Any:
+        if pager is not None:
+            return pager.apply_delta(st, delta)
         return apply_any_delta(dense, st, delta)
 
     def chain(member: str, cur: int) -> int:
@@ -643,6 +671,10 @@ def sweep_deltas(
                         else None
                     )
                     try:
+                        if pager is not None and pager.has_cold():
+                            # Cold slices of the peer fold host-side;
+                            # the device merge sees only the hot rest.
+                            peer = pager.absorb_peer(peer)
                         if profile.ACTIVE or devprof.ACTIVE:
                             with profile.dispatch(
                                 "elastic.snap_merge", fn=dense.merge, operands=(peer,)
@@ -708,9 +740,7 @@ def sweep(
     join. Returns (state, n_merged). Self's snapshot is skipped (already
     reflected); stale or concurrent publishes are safe by idempotence
     (MONOID engines ride the versioned-row lift, where row-replace is
-    the idempotent join — `parallel.monoid`). The pager is not ported
-    yet: `pager` raises `NotImplementedError`."""
-    _not_ported("sweep", pager=pager)
+    the idempotent join — `parallel.monoid`)."""
     dense, state = _resolve_monoid(dense, state, "sweep")
     n = 0
     for m in store.snapshot_members():
@@ -720,6 +750,8 @@ def sweep(
         if got is None:
             continue
         _step, peer = got
+        if pager is not None and pager.has_cold():
+            peer = pager.absorb_peer(peer)
         tok = (
             obs_spans.begin("round.delta_apply", origin=m, step=_step, via="sweep")
             if obs_spans.ACTIVE

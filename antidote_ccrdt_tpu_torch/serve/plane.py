@@ -262,10 +262,6 @@ class ServePlane:
         # demoted partition's hole, and answered row ids feed the
         # pager's recency clock — the serve plane IS the access stream
         # the eviction policy ranks partitions by.
-        if pager is not None:
-            raise NotImplementedError(
-                "ServePlane(pager=): the pager plane (core/pager) is not ported yet"
-            )
         self.pager = pager
         self.mono = mono  # injectable: frozen in parity tests, virtual in sim
         self.replica = ReadReplica(metrics=self.metrics, mono=mono)

@@ -122,8 +122,30 @@ Phases, each printing one line (any failure exits non-zero):
    against their plain versions; the same flow at R = 4, 1 024 ids with
    no threads or faults gives equal answer bytes, certificates and
    digests on the CPU and the card;
-14. the kernels line (launches on each path that drives a kernel, phases
-   9-13 included), then the ok line.
+14. overlap and pager: (a) ``tests/test_overlap.py``'s overlapped chaos
+   drill at the main path's width: phase 12's members, faults, ops and
+   adoption, the inbound half of every member through an
+   ``OverlapPipeline`` (queue depth 3, a threadless ``prefetch.poll()``
+   every round, ``drain_into`` every third round, so that the queue
+   sheds); gates: the survivors at the sequential reference, folds and
+   dropped deltas counted, no apply error, m0's kernel calls held against
+   their plain versions; (b) 3 members on ``FsTransport``, 4 rounds
+   serially (publish, ``sweep_deltas``) and 4 overlapped (publishes on the
+   ``HostStage``, fetches on the ``DeltaPrefetcher`` thread,
+   ``drain_into``), each arm closed by a serial tail: equal digests at the
+   reference, round p50/p99 of each arm, the host stage's stalls; (c)
+   ``scripts/working_set_demo.py``'s drill at the main path's width: 3
+   workers, 32 partitions, each ``PartitionPager``'s budget a tenth of the
+   563 MB state (the cold tier in pinned host memory), Zipf(2.2) accesses
+   through ``ensure_resident`` before every apply, the partition plane's
+   publisher, partial anti-entropy and delta sweeps through the pager;
+   the demo's gates (converged, equal to an all-resident sequential
+   reference, state >= 10x the budget, evictions, hydrations and cold
+   folds, hit rates >= 0.9, no wasted psnap, the hydrate span lit) and an
+   all-resident arm with equal digests; then (a) and (c) at R = 4,
+   I = 4 096 on the CPU and the card, equal states, digests and counters;
+15. the kernels line (launches on each path that drives a kernel, phases
+   9-14 included), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -224,6 +246,29 @@ FLEET_NONZERO = ("router.writes", "router.write_successes", "router.write_failov
 # The reduced width of the CPU == card run of the same flow (no threads,
 # no faults, frozen clocks, so that its bytes are comparable).
 FLEET_SMALL = (4, 1_024, 64, 16)
+# Phase 14a, tests/test_overlap.py's run_overlap_chaos at the main path's
+# width: phase 12's members, simulator, faults, ops and publisher, with the
+# inbound half through one OverlapPipeline a member (queue depth 3, a
+# threadless poll() every round, drain_into every third round, so that the
+# queue sheds).
+OVERLAP_DEPTH, OVERLAP_DRAIN_EVERY = 3, 3
+# Phase 14b, serial against overlapped rounds with live threads: 3 members
+# on FsTransport (wall clock), DeltaPublisher(full_every=4); the overlapped
+# arm publishes on the pipeline's HostStage and fetches on its
+# DeltaPrefetcher thread; a serial tail then converges each arm.
+PIPE_MEMBERS, PIPE_STEPS, PIPE_TAIL = ("p0", "p1", "p2"), 4, 20
+# Phase 14c, scripts/working_set_demo.py's run_drill at the main path's
+# width: 3 workers on FsTransport, P = 32 partitions, each pager's budget a
+# tenth of the state, the demo's add-only batches (96 Zipf(2.2) ids a
+# replica and step, seeded per (seed, step, replica)), `ensure_resident`
+# before every apply, hit counters reset after step 2, a tail of at most
+# 80 rounds; the demo's gates. Replica rows split over the workers as
+# phase 12 splits them. Cut from the demo's 10 steps to 6 for time: each
+# step of each arm publishes and sweeps 563 MB anchors on the host.
+WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w2"), 6, 2, 80, 32, 2.2, 7
+WS_B, WS_BR, WS_MIN_HIT, WS_MIN_RATIO = 96, 8, 0.9, 10.0
+# The reduced widths (R, I, B, Br) of the CPU == card runs of 14a and 14c.
+OVERLAP_SMALL, WS_SMALL = GOSSIP_SMALL, (4, 4_096, WS_B, WS_BR)
 
 
 def log(phase: str, **kw) -> None:
@@ -1509,7 +1554,7 @@ class GossipOps:
         return convert.from_numpy(TopkRmvOps, cols, self.dev)
 
 
-def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None) -> dict:
+def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None, overlap: bool = False) -> dict:
     """tests/test_net_chaos.py's ``run_chaos("topk_rmv", seed=7,
     delta=True)`` on the port at width `geo` = (R, I, B, Br) on `dev`.
     With `held`, every kernel call of member m0 is held against its plain
@@ -1517,12 +1562,18 @@ def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None) -
     timed into it; `launches` maps wrapper names to their wrappers, for
     the launches of m0 and of the sweeps. Returns the members' states,
     digests, the reference digest, the fault counters and the sweeps'
-    stats."""
+    stats. With `overlap`, it is tests/test_overlap.py's
+    ``run_overlap_chaos`` instead: every member's inbound half goes
+    through an `OverlapPipeline` (depth OVERLAP_DEPTH, `prefetch.poll()`
+    every round, `drain_into` every OVERLAP_DRAIN_EVERY rounds and every
+    tail round, each timed into ``timing["drain_ms"]``), and the
+    counters include the pipelines' ``overlap.*`` and ``ingest.*``."""
     from antidote_ccrdt_tpu_torch import registry
     from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
     from antidote_ccrdt_tpu_torch.net.sim import SimNet
     from antidote_ccrdt_tpu_torch.net.transport import GossipNode
     from antidote_ccrdt_tpu_torch.parallel.elastic import DeltaPublisher, my_replicas, sweep_deltas
+    from antidote_ccrdt_tpu_torch.parallel.overlap import OverlapPipeline
     from antidote_ccrdt_tpu_torch.utils.benchtime import sync
 
     r, ids, b, br = geo
@@ -1614,6 +1665,14 @@ def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None) -
             timing["join_ms"].append(total - spent[0])
         sweeps.append(dict(member=m, **stats))
 
+    def drain(m):
+        wait()
+        t0 = time.perf_counter()
+        states[m] = ovls[m].drain_into(states[m])
+        wait()
+        if timing is not None:
+            timing["drain_ms"].append((time.perf_counter() - t0) * 1e3)
+
     def member_round(m, step, *, tail=False):
         node = nodes[m]
         node.heartbeat()
@@ -1624,7 +1683,13 @@ def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None) -
         owned[m] = now_owned
         if not tail:
             states[m] = apply(states[m], step, sorted(owned[m]))
-        if tail or step % 2 == 0:
+        if overlap:
+            if tail or step % 2 == 0:
+                pubs[m].publish(states[m])
+            ovls[m].prefetch.poll()
+            if tail or step % OVERLAP_DRAIN_EVERY == OVERLAP_DRAIN_EVERY - 1:
+                drain(m)
+        elif tail or step % 2 == 0:
             publish_and_sweep(m)
 
     def round_of(m, step, tail=False):
@@ -1643,6 +1708,8 @@ def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None) -
     for m in names:
         if set(nodes[m].members()) != set(names):
             raise AssertionError(f"gossip bootstrap incomplete at {m}: {nodes[m].members()}")
+    ovls = {m: OverlapPipeline(nodes[m], dense, states[m], depth=OVERLAP_DEPTH, start_thread=False)
+            for m in names} if overlap else {}
     for step in range(GOSSIP_STEPS):
         if step == 3:
             net.partition({"m0", "m1"}, {"m2", "m3"})
@@ -1677,8 +1744,15 @@ def run_gossip(torch, dev: str, geo, *, held=None, timing=None, launches=None) -
         covered = set().union(*(owned[m] for m in live)) == set(range(r))
         if covered and all(digest(states[m]) == ref for m in live):
             break
+    counters = dict(net.metrics.counters)
+    for m in ovls:
+        ovls[m].host.close()
+        if m in live:
+            for k, v in nodes[m].metrics.snapshot()["counters"].items():
+                if k.startswith(("overlap.", "ingest.")):
+                    counters[k] = counters.get(k, 0.0) + v
     return dict(dense=dense, states={m: states[m] for m in live}, digests={m: digest(states[m]) for m in live},
-                ref=ref, covered=covered, counters=dict(net.metrics.counters), sweeps=sweeps, tail_rounds=tail,
+                ref=ref, covered=covered, counters=counters, sweeps=sweeps, tail_rounds=tail,
                 steps_vt=steps_vt, converged_vt=net.time, m0_launches=m0_launches, sweep_launches=sweep_launches)
 
 
@@ -2612,6 +2686,513 @@ def phase_fleet(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+def pct(xs, p: float):
+    """The p-quantile of `xs` (nearest rank below), None when empty."""
+    xs = sorted(xs)
+    return xs[int(p * (len(xs) - 1))] if xs else None
+
+
+def _timed(obj, attr: str, into: list, wait) -> None:
+    """Time every call of `obj.attr` (host clock around synced work) into
+    `into`, by an attribute on the instance."""
+    inner = getattr(obj, attr)
+
+    def call(*a, **kw):
+        wait()
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **kw)
+        finally:
+            wait()
+            into.append((time.perf_counter() - t0) * 1e3)
+    setattr(obj, attr, call)
+
+
+def _observable(dense, state, rows: int):
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+
+    obs = dense.value(fold_rows(dense, state, range(rows)))[0][0]
+    return sorted((int(i), int(sc)) for (i, sc) in obs)
+
+
+def run_pipeline(torch, dev: str, geo, *, overlapped: bool) -> dict:
+    """One arm of 14b: PIPE_MEMBERS on FsTransport apply their replicas'
+    ops (phase 12's) for PIPE_STEPS rounds, each round publishing and
+    taking in their peers' windows — serially (`publish`, then
+    `sweep_deltas`) or overlapped (the publish submitted to the pipeline's
+    HostStage, the peers' windows fetched, decoded and expanded on its
+    DeltaPrefetcher thread, `drain_into` on the round thread); then
+    `close` and a serial tail until every member shows the sequential
+    reference. Returns each member's round ms, the digests, the reference
+    and the pipelines' counters."""
+    import shutil
+    import tempfile
+
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.net.transport import FsTransport, GossipNode
+    from antidote_ccrdt_tpu_torch.parallel.elastic import DeltaPublisher, owners, sweep_deltas
+    from antidote_ccrdt_tpu_torch.parallel.overlap import OverlapPipeline
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+
+    r, ids, b, br = geo
+    on_card = torch.device(dev).type == "cuda"
+
+    def wait():
+        if on_card:
+            sync()
+
+    dense = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=K, slots_per_id=M, device=dev)
+    gen = GossipOps(r, ids, b, br, dev)
+    members = list(PIPE_MEMBERS)
+    own = owners(sorted(members), r)
+    owned = {m: sorted(x for x, w in own.items() if w == m) for m in members}
+    root = tempfile.mkdtemp(prefix="pipeline-")
+    transports = {m: FsTransport(root, m) for m in members}
+    try:
+        nodes = {m: GossipNode(transports[m]) for m in members}
+        states = {m: dense.init(r, 1) for m in members}
+        cursors = {m: {} for m in members}
+        pubs = {m: DeltaPublisher(nodes[m], dense, name="topk_rmv", full_every=4) for m in members}
+        ovls = ({m: OverlapPipeline(nodes[m], dense, states[m], start_thread=True) for m in members}
+                if overlapped else {})
+        round_ms = []
+        t_arm = time.perf_counter()
+        for step in range(PIPE_STEPS):
+            for m in members:
+                wait()
+                t0 = time.perf_counter()
+                states[m] = dense.apply_ops(states[m], gen.batch(step, owned[m]), collect_dominated=False)[0]
+                if overlapped:
+                    ovls[m].submit(pubs[m].publish, states[m])
+                    states[m] = ovls[m].drain_into(states[m])
+                else:
+                    pubs[m].publish(states[m])
+                    states[m], _ = sweep_deltas(nodes[m], dense, states[m], cursors[m])
+                wait()
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+        steps_s = time.perf_counter() - t_arm
+        for m in ovls:
+            states[m] = ovls[m].close(states[m])
+            cursors[m] = dict(ovls[m].cursors)
+        ref_state = dense.init(r, 1)
+        for step in range(PIPE_STEPS):
+            ref_state = dense.apply_ops(ref_state, gen.batch(step, range(r)), collect_dominated=False)[0]
+        ref = _observable(dense, ref_state, r)
+        del ref_state
+        tail = 0
+        for tail in range(1, PIPE_TAIL + 1):
+            if all(_observable(dense, states[m], r) == ref for m in members):
+                break
+            for m in members:
+                pubs[m].publish(states[m])
+            for m in members:
+                states[m], _ = sweep_deltas(nodes[m], dense, states[m], cursors[m])
+        counters = {}
+        for m in members:
+            for k, v in nodes[m].metrics.snapshot()["counters"].items():
+                if k.startswith(("overlap.", "ingest.")):
+                    counters[k] = counters.get(k, 0.0) + v
+        return dict(round_ms=round_ms, steps_s=steps_s, digests={m: _observable(dense, states[m], r)
+                                                                 for m in members},
+                    ref=ref, tail_rounds=tail, counters=counters)
+    finally:
+        for t in transports.values():
+            t.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class WorkingSetOps:
+    """scripts/working_set_demo.py's ``gen_ops`` at a given width: replica
+    x's adds at a step come from ``default_rng(seed 1 000 003 + 9 100
+    (step + 1) + x)`` (B ids Zipf(2.2) over the id space, scores in
+    [1, 500), dc = x mod D, ts = step B + j + 1); no removals (the demo's
+    add-only stream); the rows of replicas not owned are padding."""
+
+    def __init__(self, r: int, ids: int, b: int, br: int, dev: str, seed: int = WS_SEED):
+        self.r, self.ids, self.b, self.br, self.dev, self.seed = r, ids, b, br, dev, seed
+
+    def batch(self, step: int, owned):
+        import numpy as np
+
+        from antidote_ccrdt_tpu_torch import convert
+        from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
+
+        r, b, br = self.r, self.b, self.br
+        cols = dict(
+            add_key=np.zeros((r, b), np.int32), add_id=np.zeros((r, b), np.int32),
+            add_score=np.zeros((r, b), np.int32), add_dc=np.zeros((r, b), np.int32),
+            add_ts=np.zeros((r, b), np.int32), rmv_key=np.zeros((r, br), np.int32),
+            rmv_id=np.full((r, br), -1, np.int32), rmv_vc=np.zeros((r, br, r), np.int32),
+        )
+        access = []
+        for x in sorted(owned):
+            rng = np.random.default_rng(self.seed * 1_000_003 + 9_100 * (step + 1) + x)
+            ids = ((rng.zipf(WS_ZIPF, size=b) - 1) % self.ids).astype(np.int32)
+            cols["add_id"][x], cols["add_score"][x] = ids, rng.integers(1, 500, b)
+            cols["add_dc"][x] = x % r
+            cols["add_ts"][x] = step * b + np.arange(b) + 1
+            access.append(ids)
+        acc = np.concatenate(access) if access else np.zeros(0, np.int32)
+        return convert.from_numpy(TopkRmvOps, cols, self.dev), acc
+
+
+def run_working_set(torch, dev: str, geo, *, paged: bool = True, spans: bool = False, held=None,
+                    launches=None, timing=None) -> dict:
+    """scripts/working_set_demo.py's ``run_drill`` on the port at width `geo`
+    on `dev`: WS_MEMBERS on FsTransport, a `PartitionPager` a worker (its
+    budget a tenth of the state) unless `paged` is false (the all-resident
+    arm), the partition plane's publisher, partial anti-entropy and delta
+    sweeps through the pager, `ensure_resident` before every apply.
+    `held`: w0's kernel calls held against their plain versions;
+    `timing` gets ms of every publish and sweep, and (paged) of every
+    full_state and cold fold. Returns the demo's measurement dict."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.core import pager as pg
+    from antidote_ccrdt_tpu_torch.core import partition as pt
+    from antidote_ccrdt_tpu_torch.core.batch_merge import tree_nbytes
+    from antidote_ccrdt_tpu_torch.net.transport import FsTransport, GossipNode
+    from antidote_ccrdt_tpu_torch.obs import spans as obs_spans
+    from antidote_ccrdt_tpu_torch.parallel.elastic import (DeltaPublisher, PartialAntiEntropy, owners,
+                                                           sweep_deltas)
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    r, ids, b, br = geo
+    P = WS_P
+    on_card = torch.device(dev).type == "cuda"
+
+    def wait():
+        if on_card:
+            sync()
+
+    dense = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=K, slots_per_id=M, device=dev)
+    gen = WorkingSetOps(r, ids, b, br, dev)
+    members = list(WS_MEMBERS)
+    own = owners(sorted(members), r)
+    owned = {m: sorted(x for x, w in own.items() if w == m) for m in members}
+    launches = launches or {}
+    w0_launches = dict.fromkeys(launches, 0)
+    out = {"pager": paged, "partitions": P}
+    root = tempfile.mkdtemp(prefix="workset-")
+    transports = {m: FsTransport(root, m) for m in members}
+    try:
+        stores = {m: GossipNode(transports[m]) for m in members}
+        states = {m: dense.init(r, 1) for m in members}
+        cursors = {m: {} for m in members}
+        pagers = dict.fromkeys(members)
+        if paged:
+            for m in members:
+                probe = pg.PartitionPager(dense, states[m], P=P, name="workset", metrics=stores[m].metrics)
+                total = probe.meta_bytes + sum(probe.part_bytes.values())
+                budget = max(1, total // 10)  # forced 10x overcommit
+                pagers[m] = pg.PartitionPager(dense, states[m], P=P, name="workset", hbm_budget_bytes=budget,
+                                              metrics=stores[m].metrics)
+                out.update(state_bytes=total, hbm_budget_bytes=budget, state_over_budget_x=total / budget)
+                if timing is not None:
+                    _timed(pagers[m], "full_state", timing["full_state_ms"], wait)
+                    _timed(pagers[m], "_fold_into_cold", timing["cold_fold_ms"], wait)
+        pubs = {m: DeltaPublisher(stores[m], dense, name="topk_rmv", full_every=2, keep=8, partitions=P,
+                                  pager=pagers[m]) for m in members}
+        partials = {m: PartialAntiEntropy(stores[m], partitions=P, max_tries=12, pager=pagers[m])
+                    for m in members}
+
+        def as_w0(m, hold=None):
+            """w0's work: its launches counted, and its kernel calls held
+            against their plain versions into `hold` (its steps' hydrations
+            and applies; its publishes and sweeps run the same joins)."""
+            if m != "w0":
+                return contextlib.nullcontext()
+            return _counting(held_against_plain(torch, hold) if hold is not None else contextlib.nullcontext(),
+                             launches, w0_launches)
+
+        def digest_vec(m):
+            if pagers[m] is not None:
+                return pagers[m].digest_vector(states[m])
+            return pt.state_digests(states[m], P)
+
+        def round_of():
+            for m in members:
+                stores[m].heartbeat()
+                wait()
+                t0 = time.perf_counter()
+                with as_w0(m):
+                    pubs[m].publish(states[m])
+                wait()
+                if timing is not None:
+                    timing["publish_ms"].append((time.perf_counter() - t0) * 1e3)
+            time.sleep(0.05)
+            for m in members:
+                t0 = time.perf_counter()
+                with as_w0(m):
+                    states[m], _ = sweep_deltas(stores[m], dense, states[m], cursors[m], partial=partials[m],
+                                                pager=pagers[m])
+                wait()
+                if timing is not None:
+                    timing["sweep_ms"].append((time.perf_counter() - t0) * 1e3)
+
+        span_cm = obs_spans.installed("workset", metrics=stores["w0"].metrics) if spans else contextlib.nullcontext()
+        span_names = set()
+        t_drill = time.perf_counter()
+        with span_cm:
+            deadline = time.time() + 10.0
+            while any(len(stores[m].members()) < len(members) for m in members):
+                for m in members:
+                    stores[m].heartbeat()
+                if time.time() > deadline:
+                    raise AssertionError("the working-set drill's start barrier timed out")
+                time.sleep(0.05)
+            for step in range(WS_STEPS):
+                for m in members:
+                    ops, acc = gen.batch(step, owned[m])
+                    with as_w0(m, held):
+                        if pagers[m] is not None:
+                            # Front door before device writes: hydrate the
+                            # batch's partitions (billed per access).
+                            states[m] = pagers[m].ensure_resident(states[m], pt.part_of(acc, P))
+                        states[m] = dense.apply_ops(states[m], ops, collect_dominated=False)[0]
+                if step == WS_WARM and paged:
+                    for m in members:
+                        pagers[m].hits = pagers[m].misses = 0
+                round_of()
+            agree = False
+            for tail in range(WS_TAIL):
+                vecs = [digest_vec(m) for m in members]
+                if all(np.array_equal(vecs[0], v) for v in vecs[1:]):
+                    agree = True
+                    break
+                round_of()
+            out.update(converged=agree, tail_rounds=tail)
+            if spans:
+                span_names = {rec.get("name") for rec in obs_spans.drain() if rec.get("k") == "span"}
+        wait()
+        out["drill_s"] = time.perf_counter() - t_drill
+        ref = dense.init(r, 1)
+        for step in range(WS_STEPS):
+            ref = dense.apply_ops(ref, gen.batch(step, range(r))[0], collect_dominated=False)[0]
+        ref_vec = pt.state_digests(ref, P)
+        ref_obs = _observable(dense, ref, r)
+        del ref
+        vec = digest_vec("w0")
+        finals = {m: _observable(dense, pagers[m].full_state(states[m]) if pagers[m] is not None else states[m], r)
+                  for m in members}
+        out.update(digest_vector=[int(x) for x in vec], observable=finals["w0"],
+                   matches_reference=bool(np.array_equal(vec, ref_vec)) and all(
+                       f == ref_obs for f in finals.values()))
+        counters = {}
+        for m in members:
+            for k, v in stores[m].metrics.counters.items():
+                if k.startswith(("pager.", "net.psnap", "net.partition")):
+                    counters[k] = counters.get(k, 0) + int(v)
+        out["counters"] = dict(sorted(counters.items()))
+        if paged:
+            out["hit_rates"] = {m: pagers[m].hit_rate() for m in members}
+            out["min_hit_rate"] = min(out["hit_rates"].values())
+            out["miss_ms"] = [x for m in members for x in stores[m].metrics.snapshot()["latencies"].get(
+                "pager.miss_ms", [])]
+            out["resident_bytes"] = {m: pagers[m].resident_bytes() for m in members}
+            out["host_tier_bytes"] = {m: pagers[m].host_bytes() for m in members}
+            subs = [pagers[m]._cold for m in members if pagers[m]._cold is not None]
+            out["cold_tier_bytes"] = {m: tree_nbytes(pagers[m]._cold) if pagers[m]._cold is not None else 0
+                                      for m in members}
+            out["cold_tier_pinned"] = all(x.is_pinned() for sub in subs for x in leaves(sub))
+        out["span_names"] = sorted(n for n in span_names if n is not None)
+        out["w0_launches"] = w0_launches
+        return out
+    finally:
+        for t in transports.values():
+            t.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _counting(cm, launches: dict, into: dict):
+    """`cm` open, and the launches of `launches`' wrappers inside it added
+    to `into`."""
+    before = {n: w.launches for n, w in launches.items()}
+    with cm:
+        yield
+    for n, w in launches.items():
+        into[n] += w.launches - before[n]
+
+
+def check_working_set(out: dict, what: str) -> dict:
+    """The demo's gates on a paged run; returns the counters it read."""
+    c = out["counters"]
+    checks = {
+        "converged": bool(out["converged"]),
+        "matches_sequential_reference": bool(out["matches_reference"]),
+        "state_ge_10x_budget": out["state_over_budget_x"] >= WS_MIN_RATIO,
+        "pager_paged": all(c.get(k, 0) > 0 for k in ("pager.evictions", "pager.hydrations", "pager.cold_folds")),
+        "hit_rate_ge_min": out["min_hit_rate"] >= WS_MIN_HIT,
+        "no_wasted_psnaps": c.get("net.psnap_wasted", 0) == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{what}: {failed} ({ {k: out.get(k) for k in ('min_hit_rate', 'tail_rounds')} }, "
+                             f"{c})")
+    return c
+
+
+def phase_overlap_pager(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 14: the overlapped drill (14a), serial against overlapped
+    rounds with live threads (14b), the overcommitted working set (14c),
+    and 14a and 14c at reduced widths on the CPU and the card with equal
+    states, digests and counters. Returns the phase's K1c, K2 and K3
+    launches (14a-c at the main path's width)."""
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    wrappers = {"scatter_max_rows_copy": kernels.scatter_max_rows_copy, "delta_place": delta_place,
+                "sort_slots": kernels.sort_slots}
+    kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
+
+    def same(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(leaves(a), leaves(b)))
+
+    def held_calls(held):
+        return {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in wrappers}
+
+    def peak_start():
+        gc.collect()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    t_phase = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+
+    # 14a: the overlapped chaos drill.
+    base = peak_start()
+    held, timing = {}, {"drain_ms": []}
+    t0 = time.perf_counter()
+    out = run_gossip(torch, dev, (R, I, B, BR), held=held, launches=wrappers, timing=timing, overlap=True)
+    drill_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    bad = {m: d for m, d in out["digests"].items() if d != out["ref"]}
+    c = out["counters"]
+    if not out["ref"] or bad or not out["covered"]:
+        raise AssertionError(f"the overlapped drill: survivors {sorted(bad)} differ from the sequential reference "
+                             f"after {out['tail_rounds']} tail rounds")
+    if not (c.get("overlap.folds", 0) > 0 and c.get("overlap.dropped_deltas", 0) > 0) or c.get(
+            "overlap.apply_errors", 0):
+        raise AssertionError(f"the overlapped drill's pipeline counters: {c}")
+    if held_calls(held) != out["m0_launches"] or not all(held_calls(held).values()) or any(
+            v["max_abs_err"] for v in held.values()):
+        raise AssertionError(f"m0 launched {out['m0_launches']}, held {held}")
+    a_launches = {n: w.launches for n, w in wrappers.items()}
+    require_launches(a_launches, wrappers, "the overlapped drill")
+    state_bytes = sum(x.numel() * x.element_size() for x in leaves(out["states"]["m0"]))
+    log("14a overlap", card=card, members=GOSSIP_MEMBERS, steps=GOSSIP_STEPS, replicas=R, ids=I, adds=B,
+        removals=BR, depth=OVERLAP_DEPTH, drain_every=OVERLAP_DRAIN_EVERY, state_bytes=state_bytes,
+        tail_rounds=out["tail_rounds"], survivors=sorted(out["digests"]), drill_s=drill_s,
+        drain_ms_p50=pct(timing["drain_ms"], 0.5), drain_ms_p99=pct(timing["drain_ms"], 0.99),
+        drains=len(timing["drain_ms"]), windows_per_fold=c["overlap.folded_windows"] / c["overlap.folds"],
+        staged_bytes=c.get("ingest.staged_bytes", 0), pipeline={k: v for k, v in c.items() if k.startswith(
+            ("overlap.", "ingest."))}, faults={k: c.get(k, 0) for k in (
+                "net.sim_lost", "net.sim_duplicated", "net.sim_unreachable", "net.dead_events")},
+        launches=a_launches, m0_launches=out["m0_launches"], held_against_plain=held, peak_mem_gb=peak_gb)
+    del out
+    gc.collect()
+
+    # 14b: serial against overlapped rounds, live threads.
+    arms = {}
+    base = peak_start()
+    for overlapped in (False, True):
+        t0 = time.perf_counter()
+        arms[overlapped] = run_pipeline(torch, dev, (R, I, B, BR), overlapped=overlapped)
+        arms[overlapped]["arm_s"] = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    for arm in arms.values():
+        if any(d != arm["ref"] for d in arm["digests"].values()):
+            raise AssertionError(f"14b: an arm ended off the sequential reference after {arm['tail_rounds']} "
+                                 f"tail rounds")
+    if arms[False]["digests"] != arms[True]["digests"] or arms[True]["counters"].get("overlap.apply_errors", 0):
+        raise AssertionError(f"14b: the serial and overlapped arms differ: {arms[True]['counters']}")
+    b_launches = {n: w.launches - a_launches[n] for n, w in wrappers.items()}
+    require_launches(b_launches, wrappers, "14b's rounds")
+    log("14b pipeline", card=card, members=list(PIPE_MEMBERS), steps=PIPE_STEPS, replicas=R, ids=I, **{
+        f"{name}_{k}": v for overlapped, name in ((False, "serial"), (True, "overlapped")) for k, v in (
+            ("round_ms_p50", pct(arms[overlapped]["round_ms"], 0.5)),
+            ("round_ms_p99", pct(arms[overlapped]["round_ms"], 0.99)),
+            ("steps_s", arms[overlapped]["steps_s"]), ("arm_s", arms[overlapped]["arm_s"]),
+            ("tail_rounds", arms[overlapped]["tail_rounds"]))},
+        stalls=arms[True]["counters"].get("overlap.stalls", 0), host_tasks=arms[True]["counters"].get(
+            "overlap.host_tasks", 0), pipeline=arms[True]["counters"], equal_digests=True, launches=b_launches,
+        peak_mem_gb=peak_gb)
+    del arms
+    gc.collect()
+
+    # 14c: the overcommitted working set, then its all-resident arm.
+    base = peak_start()
+    held, timing = {}, {"full_state_ms": [], "cold_fold_ms": [], "publish_ms": [], "sweep_ms": []}
+    ws = run_working_set(torch, dev, (R, I, WS_B, WS_BR), spans=True, held=held, launches=wrappers,
+                         timing=timing)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    wc = check_working_set(ws, "the working-set drill")
+    if "round.pager_hydrate" not in ws["span_names"] or ws["cold_tier_pinned"] != (torch.device(dev).type == "cuda"):
+        raise AssertionError(f"the working-set drill: spans {ws['span_names']}, pinned {ws['cold_tier_pinned']}")
+    if not all(held_calls(held).values()) or any(v["max_abs_err"] for v in held.values()):
+        raise AssertionError(f"w0's held calls: {held}")
+    flat_timing = {"publish_ms": [], "sweep_ms": []}
+    flat = run_working_set(torch, dev, (R, I, WS_B, WS_BR), paged=False, timing=flat_timing)
+    if not flat["converged"] or flat["digest_vector"] != ws["digest_vector"] or \
+            flat["observable"] != ws["observable"]:
+        raise AssertionError("the working-set drill's all-resident arm differs from the paged arm")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    c_launches = {n: launches[n] - a_launches[n] - b_launches[n] for n in wrappers}
+    require_launches(c_launches, wrappers, "the working-set drill")
+    log("14c working set", card=card, workers=list(WS_MEMBERS), steps=WS_STEPS, replicas=R, ids=I,
+        adds=WS_B, partitions=WS_P, state_bytes=ws["state_bytes"], hbm_budget_bytes=ws["hbm_budget_bytes"],
+        state_over_budget_x=ws["state_over_budget_x"], tail_rounds=ws["tail_rounds"], drill_s=ws["drill_s"],
+        all_resident_drill_s=flat["drill_s"], publish_s=sum(timing["publish_ms"]) / 1e3,
+        sweep_s=sum(timing["sweep_ms"]) / 1e3, publish_ms_p50=pct(timing["publish_ms"], 0.5),
+        publish_ms_p99=pct(timing["publish_ms"], 0.99), sweep_ms_p50=pct(timing["sweep_ms"], 0.5),
+        sweep_ms_p99=pct(timing["sweep_ms"], 0.99), all_resident_publish_s=sum(flat_timing["publish_ms"]) / 1e3,
+        all_resident_sweep_s=sum(flat_timing["sweep_ms"]) / 1e3, hit_rates=ws["hit_rates"], miss_ms_p50=pct(ws["miss_ms"], 0.5),
+        miss_ms_p99=pct(ws["miss_ms"], 0.99), hydrations_timed=len(ws["miss_ms"]),
+        full_state_ms_p50=pct(timing["full_state_ms"], 0.5), full_state_ms_p99=pct(
+            timing["full_state_ms"], 0.99), full_states=len(timing["full_state_ms"]),
+        cold_fold_ms_p50=pct(timing["cold_fold_ms"], 0.5), cold_fold_ms_p99=pct(timing["cold_fold_ms"], 0.99),
+        cold_folds_timed=len(timing["cold_fold_ms"]), resident_bytes=ws["resident_bytes"],
+        host_tier_bytes=ws["host_tier_bytes"], cold_tier_bytes=ws["cold_tier_bytes"], cold_tier_pinned=ws["cold_tier_pinned"],
+        counters=wc, hydrate_span_lit=True, all_resident_equal=True, launches=c_launches,
+        w0_launches=ws["w0_launches"], held_against_plain=held, peak_mem_gb=peak_gb)
+    del ws, flat
+    gc.collect()
+
+    # 14a and 14c at reduced widths: the CPU's plain versions against the
+    # card's kernels.
+    t_small = time.perf_counter()
+    small = {d: run_gossip(torch, d, OVERLAP_SMALL, overlap=True) for d in ("cpu", dev)}
+    cpu, on_card = small["cpu"], small[dev]
+    if cpu["counters"] != on_card["counters"] or cpu["digests"] != on_card["digests"] or not all(
+            same(cpu["states"][m], on_card["states"][m]) for m in cpu["states"]):
+        raise AssertionError("the reduced overlapped drill differs between the CPU and the card")
+    if not cpu["covered"] or any(d != cpu["ref"] for d in cpu["digests"].values()):
+        raise AssertionError("the reduced overlapped drill missed the sequential reference")
+    wsmall = {d: run_working_set(torch, d, WS_SMALL) for d in ("cpu", dev)}
+    for d, o in wsmall.items():
+        check_working_set(o, f"the reduced working-set drill on {d}")
+    for key in ("digest_vector", "observable", "counters", "hit_rates", "state_bytes", "hbm_budget_bytes"):
+        if wsmall["cpu"][key] != wsmall[dev][key]:
+            raise AssertionError(f"the reduced working-set drill's {key} differ between the CPU and the card")
+    log("14 reduced", card=card, overlap_geometry=dict(zip(("R", "I", "B", "Br"), OVERLAP_SMALL)),
+        working_set_geometry=dict(zip(("R", "I", "B", "Br"), WS_SMALL)), equal_cpu_card=True,
+        overlap_counters={k: v for k, v in cpu["counters"].items() if k.startswith("overlap.")},
+        working_set_counters=wsmall["cpu"]["counters"], reduced_s=time.perf_counter() - t_small,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 @contextlib.contextmanager
 def frozen_wall_clock(at: float = 1_700_000_000.0):
     """The port's flight recorder and certifier read one fixed wall clock
@@ -2665,6 +3246,7 @@ def main() -> int:
     durable = phase_durable_host(torch, card)
     gossip = phase_gossip(torch, card)
     fleet = phase_fleet(torch, card)
+    paged = phase_overlap_pager(torch, card)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -2691,7 +3273,7 @@ def main() -> int:
     by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in sources}
     for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
                       ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
-                      ("served fleet (phase 13)", fleet)):
+                      ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

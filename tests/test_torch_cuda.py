@@ -704,3 +704,127 @@ def test_served_fleet_on_card_equals_cpu(cuda):
     for key in ("wcert", "scert"):
         assert json.dumps(card[key], sort_keys=True) == json.dumps(cpu[key], sort_keys=True), key
     assert [st["read_docs"] for st in card["stats"]] == [st["read_docs"] for st in cpu["stats"]]
+
+
+def _paged_topk_rmv(dev, seed=11, R=3, I=256, D=3, M=4, K=8, B=48, steps=3):
+    """An engine on `dev` and a seeded state (adds and removals)."""
+    dense = registry.make_dense("topk_rmv", n_ids=I, n_dcs=D, size=K, slots_per_id=M, device=dev)
+    gen = TopkRmvEffectGen(Workload(n_replicas=R, n_ids=I, zipf_a=1.1, score_max=500, seed=seed), device=dev)
+    state = dense.init(R, 1)
+    for _ in range(steps):
+        state = dense.apply_ops(state, gen.next_batch(B, 8), collect_dominated=False)[0]
+    return dense, state
+
+
+@pytest.mark.cuda
+def test_pager_round_trip_on_card_with_a_pinned_substrate(cuda):
+    """Demoting half the partitions of a card state moves them to a pinned
+    CPU substrate (stored payloads, cached digests); hydrating them all
+    back (the slice joins launch K3) gives the never-demoted state, and
+    `full_state` in between equals it too."""
+    from antidote_ccrdt_tpu_torch.core import pager as pg
+    from antidote_ccrdt_tpu_torch.core import partition as pt
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    dense, state = _paged_topk_rmv(cuda.type)
+    ref = [x.clone() for x in leaves(state)]
+    pager = pg.PartitionPager(dense, state, P=8, name="topk_rmv")
+    for p in range(0, 8, 2):
+        state = pager.demote(state, p)
+    assert all(x.device.type == "cpu" and x.is_pinned() for x in leaves(pager._cold))
+    assert all(x.is_cuda for x in leaves(state))
+    assert np.array_equal(pager.digest_vector(state), pt.state_digests(pager.full_state(state), 8))
+    assert all(torch.equal(x, y) for x, y in zip(leaves(pager.full_state(state)), ref))
+    before = kernels.sort_slots.launches
+    for p in sorted(pager.cold_parts()):
+        state = pager.hydrate(state, p)
+    assert kernels.sort_slots.launches > before and not pager.has_cold()
+    assert all(torch.equal(x, y) for x, y in zip(leaves(state), ref))
+
+
+@pytest.mark.cuda
+def test_pager_absorb_and_full_state_on_card_equal_cpu(cuda):
+    """The same pager life on the card and on the CPU — demotions, a peer
+    delta split hot/cold, a peer's whole state absorbed, `full_state` —
+    gives equal device states, substrates, payloads and digests."""
+    from antidote_ccrdt_tpu_torch.core import pager as pg
+    from antidote_ccrdt_tpu_torch.parallel.delta import make_delta
+
+    runs = {}
+    for dev in ("cpu", cuda.type):
+        dense, state = _paged_topk_rmv(dev)
+        _, peer = _paged_topk_rmv(dev, seed=12)
+        pager = pg.PartitionPager(dense, state, P=8, name="topk_rmv")
+        for p in (1, 2, 5, 6):
+            state = pager.demote(state, p)
+        state = pager.apply_delta(state, make_delta(dense, dense.init(3, 1), peer))
+        state = dense.merge(state, pager.absorb_peer(peer))
+        runs[dev] = (state, pager._cold, [pager._load_payload(p) for p in sorted(pager.cold_parts())],
+                     pager.digest_vector(state).tolist(), pager.full_state(state),
+                     {k: v for k, v in pager.metrics.counters.items()})
+    cpu, card = runs["cpu"], runs[cuda.type]
+    assert same_leaves(card[0], cpu[0]) and same_leaves(card[1], cpu[1]) and same_leaves(card[4], cpu[4])
+    assert card[2] == cpu[2] and card[3] == cpu[3] and card[5] == cpu[5]
+    assert card[5]["pager.cold_folds"] > 0
+
+
+@pytest.mark.cuda
+def test_drain_into_folds_three_staged_windows_on_card(cuda, tmp_path):
+    """Three chained deltas prefetched, expanded onto the card and folded
+    by one `drain_into` (a `fold_states` of the state and the windows)
+    equal the serial merges of the same windows, and the CPU's fold."""
+    from antidote_ccrdt_tpu_torch.parallel.delta import expand_delta, make_delta
+    from antidote_ccrdt_tpu_torch.parallel.elastic import DeltaPublisher, GossipStore
+    from antidote_ccrdt_tpu_torch.parallel.overlap import OverlapPipeline
+
+    got = {}
+    for dev in ("cpu", cuda.type):
+        dense = registry.make_dense("topk_rmv", n_ids=256, n_dcs=3, size=8, slots_per_id=4, device=dev)
+        gen = TopkRmvEffectGen(Workload(n_replicas=3, n_ids=256, zipf_a=1.1, score_max=500, seed=4), device=dev)
+        root = str(tmp_path / dev)
+        a, b = GossipStore(root, "a"), GossipStore(root, "b")
+        pub = DeltaPublisher(a, dense, name="topk_rmv", full_every=100)
+        states = [dense.init(3, 1)]
+        for _ in range(4):
+            states.append(dense.apply_ops(states[-1], gen.next_batch(48, 8), collect_dominated=False)[0])
+            pub.publish(states[-1])
+        mine = dense.apply_ops(dense.init(3, 1), gen.next_batch(48, 8), collect_dominated=False)[0]
+        ovl = OverlapPipeline(b, dense, mine, depth=8, fold_cap=4, start_thread=False)
+        assert ovl.prefetch.poll() == 4  # the anchor and 3 deltas
+        entries = list(ovl.apq._q)
+        assert all(x.device.type == dev for e in entries for x in leaves_of(e.merged))
+        folded = ovl.drain_into(mine)
+        serial = dense.merge(mine, states[1])
+        for k in (2, 3, 4):
+            serial = dense.merge(serial, expand_delta(dense, make_delta(dense, states[k - 1], states[k])))
+        assert same_leaves(folded, serial)
+        assert ovl.metrics.counters["overlap.folds"] == 1 and ovl.metrics.counters["overlap.folded_windows"] == 4
+        ovl.close(folded)
+        got[dev] = folded
+    assert same_leaves(got[cuda.type], got["cpu"])
+
+
+def leaves_of(state):
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    return leaves(state)
+
+
+@pytest.mark.cuda
+def test_phase_14_reduced_flows_on_card_equal_cpu(cuda):
+    """chip_smoke.py phase 14's reduced flows: the overlapped drill and the
+    working-set drill at R = 4 give equal states, digests and counters on
+    the card and the CPU, and meet their gates."""
+    import chip_smoke
+
+    runs = {dev: chip_smoke.run_gossip(torch, dev, chip_smoke.OVERLAP_SMALL, overlap=True) for dev in ("cpu", cuda.type)}
+    assert runs["cpu"]["counters"] == runs[cuda.type]["counters"]
+    assert runs["cpu"]["digests"] == runs[cuda.type]["digests"]
+    for m, st in runs[cuda.type]["states"].items():
+        assert st.slot_score.is_cuda and same_leaves(st, runs["cpu"]["states"][m]), m
+    ws = {dev: chip_smoke.run_working_set(torch, dev, chip_smoke.WS_SMALL) for dev in ("cpu", cuda.type)}
+    for dev, out in ws.items():
+        chip_smoke.check_working_set(out, dev)
+    for key in ("digest_vector", "observable", "counters", "hit_rates"):
+        assert ws["cpu"][key] == ws[cuda.type][key], key
+    assert ws[cuda.type]["cold_tier_pinned"]

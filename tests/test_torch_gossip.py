@@ -185,14 +185,9 @@ def test_partial_anti_entropy_repairs_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda node, dense, st: pel.sweep_deltas(node, dense, st, {}, pager=object()),
-    lambda node, dense, st: pel.sweep(node, dense, st, pager=object()),
     lambda node, dense, st: pel.DeltaPublisher(node, dense, mesh_plan=object()),
-    lambda node, dense, st: pel.DeltaPublisher(node, dense, pager=object()),
     lambda node, dense, st: pel.PartialAntiEntropy(node, mesh_plan=object()),
-    lambda node, dense, st: pel.PartialAntiEntropy(node, pager=object()),
     lambda node, dense, st: node.publish_partitioned("topk_rmv", st, 0, dense, 4, plan=object()),
-    lambda node, dense, st: node.publish_partitioned("topk_rmv", st, 0, dense, 4, pager=object()),
 ])
 def test_planes_not_ported_raise(tmp_path, call):
     drill = demo_drills("torch")["topk_rmv"]

@@ -16,9 +16,9 @@ from antidote_ccrdt_tpu_torch.ops.compaction import compact_effect_ops
 
 REPO = Path(__file__).resolve().parent.parent
 # Modules of the compaction and MONOID slice, the validation module, the
-# durable host path (its nine modules and the pager stub), the gossip
-# plane, and the serve plane with the audit certifiers; the walk must
-# import each.
+# durable host path (its nine modules), the gossip plane, the serve
+# plane with the audit certifiers, and the overlapped round pipeline
+# with the partition pager; the walk must import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -32,6 +32,8 @@ NEW_MODULES = [
     # the serve plane and the audit certifiers
     "serve", "serve.cache", "serve.routing_common", "serve.session", "serve.replica", "serve.kernels",
     "serve.plane", "serve.router", "serve.ingest", "serve.write_session", "obs.audit",
+    # the overlapped round pipeline and the partition pager
+    "parallel.overlap", "core.pager",
 ]
 
 

@@ -164,12 +164,11 @@ def test_tcp_anchor_and_delta_cross_between_the_packages(sender_pkg):
         b.close()
 
 
-def test_tcp_query_without_a_handler_raises_for_the_serve_plane():
+def test_tcp_query_without_a_handler_answers_jax_no_plane_documents():
     """A query or a write that no handler serves gets the serve plane's
     error document ("no serve plane", "no ingest plane"), byte-equal to
     the JAX package's reply, each package querying its own transport and
-    the other's. An installed handler answers as in JAX. (The name dates
-    from before the port had a serve plane, when these branches raised.)"""
+    the other's. An installed handler answers as in JAX."""
     pt, jt = ptcp.TcpTransport("s"), jtcp.TcpTransport("s")
     try:
         for query in (ptcp.query_peer, jtcp.query_peer):

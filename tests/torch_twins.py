@@ -452,3 +452,35 @@ def serve_engine():
     """``tests/test_serve.py``'s engine (I = 8 ids, 2 DCs, K = 10, M = 2)
     in the port, on the device the caller's region gives it."""
     return registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, size=10, slots_per_id=2)
+
+
+class torch_jax:
+    """The ``jax.tree_util`` calls the JAX package's test files make on
+    states, over the port's states (for `port_copy`)."""
+
+    class tree_util:
+        @staticmethod
+        def tree_map(fn, tree, *rest):
+            from antidote_ccrdt_tpu_torch.utils.tree import tree_map
+
+            return tree_map(fn, tree, *rest)
+
+        @staticmethod
+        def tree_leaves(tree):
+            from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+            return leaves(tree)
+
+
+_PORT_CHAOS = []
+
+
+def port_run_chaos(*args, **kwargs):
+    """``tests/test_net_chaos.run_chaos`` through the port (the drills of
+    this module in place of scripts/elastic_demo.py's)."""
+    if not _PORT_CHAOS:
+        _PORT_CHAOS.append(port_copy("test_net_chaos.py", replace=[(
+            "from elastic_demo import DRILLS, R, STEPS, reference_digest",
+            "from torch_twins import DEMO_DRILLS as DRILLS, R, STEPS, reference_digest")],
+            helpers=["run_chaos"])["run_chaos"])
+    return _PORT_CHAOS[0](*args, **kwargs)
