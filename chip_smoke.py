@@ -144,8 +144,32 @@ Phases, each printing one line (any failure exits non-zero):
    folds, hit rates >= 0.9, no wasted psnap, the hydrate span lit) and an
    all-resident arm with equal digests; then (a) and (c) at R = 4,
    I = 4 096 on the CPU and the card, equal states, digests and counters;
-15. the kernels line (launches on each path that drives a kernel, phases
-   9-14 included), then the ok line.
+15. bridge: (a) ``bridge/server.py`` and ``bridge/client.py`` over TCP on
+   127.0.0.1, both in this process: a topk_rmv grid of the main path's
+   geometry (563 MB on the card) fed phase 4's op stream (seed 7, 32 768
+   Zipf(1.2) adds and 2 048 removals a replica and round) as 2
+   ``grid_apply_packed_multi`` calls of 4 batches (each frame under the
+   256 MiB limit), one ``grid_apply_extras_packed`` round,
+   ``grid_merge_all``, ``grid_observe(0, 0)`` and the snapshot round trip
+   (``grid_to_binary``, ``grid_from_binary`` into a second grid,
+   ``grid_to_binary`` again; through the server's dispatch, the snapshot
+   being past the frame limit); gates: the snapshot equals the engine
+   driven directly on the same planes (9 applies, the same fold), the
+   round trip is byte-equal, the replies equal the direct engine's; the
+   client's time a call, the server's split of it (parse, build, pack,
+   stack, upload, apply, readback), wire ops/s beside phase 4's rate,
+   peak memory; the same calls again on a second grid with every K1c, K2
+   and K3 call held against its plain version (same end state), while (c)
+   a second connection's scalar round trips are counted against their
+   idle rate (at least a tenth); (b) ``benchmarks/bench_all.py``'s
+   bench_grid_wire mix at its own shapes (R = 8, B = 4 096, 3 calls a
+   surface: the tuple and packed surfaces of the six types, packed multi
+   of 8 batches, batch_merge of 32 scalar binaries of 200 adds equal to
+   the direct batch_merge, its fold's K3 calls held), and the same calls
+   at R = 4, I = 4 096 on the CPU and the card with equal replies,
+   snapshots and batch_merge states;
+16. the kernels line (launches on each path that drives a kernel, phases
+   9-15 included), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -269,6 +293,29 @@ WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w
 WS_B, WS_BR, WS_MIN_HIT, WS_MIN_RATIO = 96, 8, 0.9, 10.0
 # The reduced widths (R, I, B, Br) of the CPU == card runs of 14a and 14c.
 OVERLAP_SMALL, WS_SMALL = GOSSIP_SMALL, (4, 4_096, WS_B, WS_BR)
+# Phase 15a, the bridge at the main path's width: one BridgeServer on the
+# card and one BridgeClient over 127.0.0.1, a topk_rmv grid of phase 4's
+# geometry fed phase 4's op stream (seed 7) as BRIDGE_CALLS
+# grid_apply_packed_multi calls of BRIDGE_MB batches, then one
+# grid_apply_extras_packed round.
+BRIDGE_CALLS, BRIDGE_MB = 2, 4
+# Phase 15b, benchmarks/bench_all.py's bench_grid_wire mix at its own
+# shapes: R replicas x B ops a call, CALLS timed calls a surface (after one
+# untimed call), packed multi calls of MB batches, and batch_merge of
+# BM_STATES scalar topk_rmv binaries of BM_ADDS adds; WIRE_SMALL (R, I, B)
+# is the CPU == card run of the same calls (B cut from 4 096 for the CPU's
+# time).
+WIRE_R, WIRE_B, WIRE_CALLS, WIRE_MB, WIRE_BM_STATES, WIRE_BM_ADDS = 8, 4_096, 3, 8, 32, 200
+WIRE_SMALL = (4, 4_096, 512)
+# Phase 15c, benchmarks/bench_bridge_contention.py's check: scalar round
+# trips a second for CONTENTION_S on an idle server, then while 15a's grid
+# applies run on another connection; the second rate must be at least
+# CONTENTION_MIN of the first.
+CONTENTION_S, CONTENTION_MIN = 2.0, 0.1
+
+
+# Phase 4's merge rates, read again beside phase 15's wire rates.
+MAIN_PATH_RATES: dict = {}
 
 
 def log(phase: str, **kw) -> None:
@@ -617,6 +664,7 @@ def phase_main_path(torch, card: str):
         print("[main] note: lossy capacity overflow flagged", flush=True)
     apply_sorted = sorted(apply_ms)
     merges = R * (B + BR) * ROUNDS
+    MAIN_PATH_RATES.update(merges_per_s=merges / total_s, apply_merges_per_s=merges / (sum(apply_ms) / 1e3))
     log("main", card=card, rounds=ROUNDS, syncs=len(sync_ms), launches=launches,
         launches_per_apply=per_round[-1],
         apply_ms=apply_ms, sync_ms=sync_ms,
@@ -3214,6 +3262,455 @@ def frozen_wall_clock(at: float = 1_700_000_000.0):
             mod.time = real
 
 
+def packed_groups(ops) -> list:
+    """One `TopkRmvOps` batch as bridge/client.py's packed-columns input
+    ((tag, counts, [columns]) with replica-major columns): every add, and
+    every removal with the nonzero entries of its vc."""
+    import numpy as np
+
+    host = {k: getattr(ops, k).cpu().numpy() for k in (
+        "add_key", "add_id", "add_score", "add_dc", "add_ts", "rmv_key", "rmv_id", "rmv_vc")}
+    n_rep, n_add = host["add_key"].shape
+    live = host["rmv_id"] >= 0
+    vc = host["rmv_vc"][live]
+    nz = vc > 0
+    return [
+        ("add", np.full(n_rep, n_add, np.int32),
+         [host[k].ravel() for k in ("add_key", "add_id", "add_score", "add_dc", "add_ts")]),
+        ("rmv", live.sum(1).astype(np.int32),
+         [host["rmv_key"][live], host["rmv_id"][live], nz.sum(1).astype(np.int32),
+          np.nonzero(nz)[1].astype(np.int32), vc[nz]]),
+    ]
+
+
+def fold_broadcast(torch, dense, state, rows: int):
+    """The JAX bridge's `merge_all` for a JOIN engine, written out apart
+    from the port's: rows folded pairwise (top half with bottom half, an
+    odd last row carried), the fold broadcast to every row."""
+    from antidote_ccrdt_tpu_torch.utils.tree import tree_map
+
+    r = rows
+    while r > 1:
+        half = r // 2
+        merged = dense.merge(tree_map(lambda x: x[:half], state), tree_map(lambda x: x[half:2 * half], state))
+        if r % 2:
+            merged = tree_map(lambda m, x: torch.cat([m, x[2 * half:r]]), merged, state)
+        state, r = merged, half + r % 2
+    return tree_map(lambda x: x[:1].expand((rows,) + tuple(x.shape[1:])).contiguous(), state)
+
+
+def scalar_rate(address, seconds: float = 0.0, stop=None) -> dict:
+    """benchmarks/bench_bridge_contention.py's scalar load: average `update`
+    round trips on a connection of its own, for `seconds` or until `stop`
+    is set."""
+    from antidote_ccrdt_tpu_torch.bridge import BridgeClient
+    from antidote_ccrdt_tpu_torch.core.etf import Atom
+
+    with BridgeClient(*address) as c:
+        h = c.new("average")
+        n, t0 = 0, time.perf_counter()
+        done = stop.is_set if stop is not None else (lambda: time.perf_counter() - t0 >= seconds)
+        while not done():
+            c.update(h, (Atom("add"), (1, 1)))
+            n += 1
+        dt = time.perf_counter() - t0
+        if c.value(h) != 1.0:
+            raise AssertionError("the scalar load's average is off")
+    return {"round_trips": n, "seconds": dt, "per_s": n / dt}
+
+
+def run_wire(torch, dev: str, geo, *, snapshots: bool = False, counts=None, held=None) -> dict:
+    """Phase 15b: benchmarks/bench_all.py's bench_grid_wire mix through the
+    port's BridgeServer on `dev` and a BridgeClient, at `geo` = (R, I, B):
+    WIRE_CALLS calls of the tuple surface (and one grid_apply_extras call)
+    and of the packed surface for the six grid types, packed multi calls of
+    WIRE_MB batches, and one batch_merge of WIRE_BM_STATES scalar topk_rmv
+    binaries of WIRE_BM_ADDS adds, equal to the port's direct
+    ``batch_merge`` on `dev`. Every reply is
+    kept; with `snapshots`, every grid's snapshot too, each restored into
+    a second grid and equal to it. `counts` (a callable giving the
+    kernels' launch counters) adds the batch_merge op's own launches;
+    `held` runs that op once more under `held_against_plain` (the checks'
+    own launches in `check_launches`)."""
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.bridge import BridgeClient, BridgeServer
+    from antidote_ccrdt_tpu_torch.core import wire
+    from antidote_ccrdt_tpu_torch.core.batch_merge import batch_merge
+    from antidote_ccrdt_tpu_torch.core.etf import Atom
+
+    Rw, Iw, Bw = geo
+    calls, mb = WIRE_CALLS, WIRE_MB
+    n_topk = min(10_000, Iw)
+    rng = np.random.default_rng(5)
+    out = {"rates": {}, "replies": [], "snapshots": {}}
+    frontier = [dict() for _ in range(Rw)]
+
+    def tr_batch():
+        per = []
+        for r in range(Rw):
+            ops = []
+            for j in range(Bw):
+                d, i = int(rng.integers(0, Rw)), int(rng.integers(0, Iw))
+                if j % 16 == 15:
+                    ops.append((Atom("rmv"), 0, i, list(frontier[r].items())))
+                else:
+                    frontier[r][d] = frontier[r].get(d, 0) + 1
+                    ops.append((Atom("add"), 0, i, int(rng.integers(1, 10**6)), d, frontier[r][d]))
+            per.append(ops)
+        return per
+
+    def tk():
+        return [[(Atom("add"), 0, int(rng.integers(0, n_topk)), int(rng.integers(1, 10**6))) for _ in range(Bw)]
+                for _ in range(Rw)]
+
+    def lb():
+        return [[(Atom("add"), 0, int(rng.integers(0, Iw)), int(rng.integers(1, 10**6))) for _ in range(Bw - 16)]
+                + [(Atom("ban"), 0, int(rng.integers(0, Iw))) for _ in range(16)] for _ in range(Rw)]
+
+    def av():
+        return [[(Atom("add"), int(rng.integers(0, 64)), int(rng.integers(-100, 100)), 1) for _ in range(Bw)]
+                for _ in range(Rw)]
+
+    def wc():
+        return [[(Atom("add"), 0, int(t)) for t in (rng.zipf(1.1, size=Bw) - 1) % 4096] for _ in range(Rw)]
+
+    def seq_ts(dcs, base):
+        order = np.argsort(dcs, kind="stable")
+        sorted_dcs = dcs[order]
+        grp = np.r_[True, sorted_dcs[1:] != sorted_dcs[:-1]]
+        c = np.arange(dcs.size) - np.maximum.accumulate(np.where(grp, np.arange(dcs.size), 0))
+        ts = np.empty_like(c)
+        ts[order] = c + 1
+        return ts + base[dcs]
+
+    Ba, nr = Bw - Bw // 16, Bw // 16
+    frontier_base = np.zeros((Rw, Rw), np.int64)
+
+    def tr_packed():
+        dc = rng.integers(0, Rw, Rw * Ba).astype(np.int32)
+        ts_parts = []
+        for r in range(Rw):
+            dcr = dc[r * Ba:(r + 1) * Ba]
+            ts_parts.append(seq_ts(dcr, frontier_base[r]))
+            frontier_base[r] += np.bincount(dcr, minlength=Rw)
+        return [
+            ("add", np.full(Rw, Ba, np.int32), [
+                np.zeros(Rw * Ba, np.int32), rng.integers(0, Iw, Rw * Ba).astype(np.int32),
+                rng.integers(1, 10**6, Rw * Ba).astype(np.int32), dc, np.concatenate(ts_parts).astype(np.int32)]),
+            ("rmv", np.full(Rw, nr, np.int32), [
+                np.zeros(Rw * nr, np.int32), rng.integers(0, Iw, Rw * nr).astype(np.int32),
+                np.full(Rw * nr, Rw, np.int32), np.tile(np.arange(Rw, dtype=np.int32), Rw * nr),
+                rng.integers(1, 50, Rw * nr * Rw).astype(np.int32)]),
+        ]
+
+    counts_b = np.full(Rw, Bw, np.int32)
+    packed_simple = {
+        "w_tk": lambda: [("add", counts_b, [np.zeros(Rw * Bw, np.int32),
+                                             rng.integers(0, n_topk, Rw * Bw).astype(np.int32),
+                                             rng.integers(1, 10**6, Rw * Bw).astype(np.int32)])],
+        "w_lb": lambda: [("add", np.full(Rw, Bw - 16, np.int32), [
+            np.zeros(Rw * (Bw - 16), np.int32), rng.integers(0, Iw, Rw * (Bw - 16)).astype(np.int32),
+            rng.integers(1, 10**6, Rw * (Bw - 16)).astype(np.int32)]),
+            ("ban", np.full(Rw, 16, np.int32), [np.zeros(Rw * 16, np.int32),
+                                                 rng.integers(0, Iw, Rw * 16).astype(np.int32)])],
+        "w_av": lambda: [("add", counts_b, [rng.integers(0, 64, Rw * Bw).astype(np.int32),
+                                             rng.integers(-100, 100, Rw * Bw).astype(np.int32),
+                                             np.ones(Rw * Bw, np.int32)])],
+        "w_wc": lambda: [("add", counts_b, [np.zeros(Rw * Bw, np.int32),
+                                             ((rng.zipf(1.1, size=Rw * Bw) - 1) % 4096).astype(np.int32)])],
+        "w_wd": lambda: [("add", counts_b, [np.zeros(Rw * Bw, np.int32),
+                                             ((rng.zipf(1.1, size=Rw * Bw) - 1) % 4096).astype(np.int32)])],
+    }
+
+    def n_tuple(batch):
+        return sum(len(x) for x in batch)
+
+    def n_packed(groups):
+        return sum(int(np.asarray(c).sum()) for _, c, _ in groups)
+
+    with BridgeServer(device=dev) as srv, BridgeClient(*srv.address, timeout=600) as client:
+        def timed(line, fn, gname, batches, n_of):
+            out["replies"].append(fn(gname, batches[0]))  # one untimed call
+            t0 = time.perf_counter()
+            for b in batches[1:]:
+                out["replies"].append(fn(gname, b))
+            out["rates"][line] = sum(n_of(b) for b in batches[1:]) / (time.perf_counter() - t0)
+
+        grids = (("w_tr", "topk_rmv", dict(n_ids=Iw, n_dcs=Rw, size=100)), ("w_tk", "topk", dict(n_ids=n_topk, size=100)),
+                 ("w_lb", "leaderboard", dict(n_players=Iw, size=100)), ("w_av", "average", dict(n_keys=64)),
+                 ("w_wc", "wordcount", dict(n_buckets=4096)), ("w_wd", "worddocumentcount", dict(n_buckets=4096)))
+        for gname, tname, geom in grids:
+            client.grid_new(gname, tname, n_replicas=Rw, **geom)
+        timed("topk_rmv tuple", client.grid_apply, "w_tr", [tr_batch() for _ in range(calls + 1)], n_tuple)
+        t0 = time.perf_counter()
+        extras_batch = tr_batch()
+        out["replies"].append(client.grid_apply_extras("w_tr", extras_batch))
+        out["rates"]["topk_rmv tuple extras"] = n_tuple(extras_batch) / (time.perf_counter() - t0)
+        for gname, tname, make in (("w_tk", "topk", tk), ("w_lb", "leaderboard", lb), ("w_av", "average", av),
+                                   ("w_wc", "wordcount", wc), ("w_wd", "worddocumentcount", wc)):
+            timed(f"{tname} tuple", client.grid_apply, gname, [make() for _ in range(calls + 1)], n_tuple)
+        timed("topk_rmv packed", client.grid_apply_packed, "w_tr", [tr_packed() for _ in range(calls + 1)], n_packed)
+        timed(f"topk_rmv packed multi x{mb}", client.grid_apply_packed_multi, "w_tr",
+              [[tr_packed() for _ in range(mb)] for _ in range(calls + 1)],
+              lambda batches: sum(n_packed(g) for g in batches))
+        for gname, tname, _ in grids[1:]:
+            timed(f"{tname} packed", client.grid_apply_packed, gname,
+                  [packed_simple[gname]() for _ in range(calls + 1)], n_packed)
+
+        n_states, n_adds = WIRE_BM_STATES, WIRE_BM_ADDS
+        scalar = registry.scalar("topk_rmv")
+        blobs = []
+        for r in range(n_states):
+            st = scalar.new(100)
+            for j in range(n_adds):
+                st, _ = scalar.update(("add", (int(rng.integers(0, 1000)), int(rng.integers(1, 10**6)), (r, j + 1))), st)
+            blobs.append(wire.to_reference_binary("topk_rmv", st))
+        before = counts() if counts else None
+        t0 = time.perf_counter()
+        h = client.batch_merge("topk_rmv", blobs)
+        out["batch_merge_ms"] = (time.perf_counter() - t0) * 1e3
+        if counts:
+            after = counts()
+            out["bm_launches"] = {n: after[n] - before[n] for n in after}
+        out["batch_merge_blob"] = client.to_binary(h)
+        # The checks' launches (the direct batch_merge, the held op) are
+        # counted apart, for the caller to leave out.
+        before = counts() if counts else None
+        direct = wire.to_reference_binary("topk_rmv", batch_merge("topk_rmv", blobs, device=dev))
+        if out["batch_merge_blob"] != direct:
+            raise AssertionError("the batch_merge op's state differs from the direct batch_merge")
+        if held is not None:
+            with held_against_plain(torch, held):
+                h2 = client.batch_merge("topk_rmv", blobs)
+            if client.to_binary(h2) != direct:
+                raise AssertionError("the held batch_merge op's state differs from the direct batch_merge")
+        if counts:
+            after = counts()
+            out["check_launches"] = {n: after[n] - before[n] for n in after}
+        if snapshots:
+            for gname, _, _ in grids:
+                blob = client.grid_to_binary(gname)
+                client.grid_from_binary(gname + "_copy", blob)
+                if client.grid_to_binary(gname + "_copy") != blob:
+                    raise AssertionError(f"{gname}'s snapshot did not survive its round trip over the wire")
+                out["snapshots"][gname] = blob
+        out["grid_observe"] = [client.grid_observe(g, 0, 0) for g, _, _ in grids]
+    return out
+
+
+def phase_bridge(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 15: the bridge server and client. (a) phase 4's geometry as
+    one grid over TCP, fed phase 4's stream by grid_apply_packed_multi,
+    then an extras round, grid_merge_all, grid_observe and the snapshot
+    round trip, equal to the engine driven directly on the same planes;
+    the same calls again with every K1c, K2 and K3 call held against its
+    plain version while (c) a second connection's scalar round trips are
+    counted; (b) bench_grid_wire's mix, and its calls at WIRE_SMALL equal
+    on the CPU and the card. Returns the phase's launches by kernel line
+    (the held runs' left out)."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.bridge import BridgeClient, BridgeServer
+    from antidote_ccrdt_tpu_torch.bridge import protocol as P
+    from antidote_ccrdt_tpu_torch.core import etf, serial
+    from antidote_ccrdt_tpu_torch.core.etf import Atom
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves, tree_map
+
+    on_card = torch.device(dev).type == "cuda"
+    wait = sync if on_card else (lambda: None)
+    k3 = kernels.sort_slots
+    kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
+
+    def counts():
+        return {"scatter_max_rows": kernels.scatter_max_rows_.launches,
+                "scatter_max_rows_copy": kernels.scatter_max_rows_copy.launches,
+                "delta_place": delta_place.launches, "sort_slots": k3.launches,
+                "sort_slots_wide": k3.wide_launches, "sort_slots_block": k3.block_launches,
+                "sort_slots_global": k3.global_launches}
+
+    def since(before):
+        now = counts()
+        return {n: now[n] - before[n] for n in now}
+
+    t_phase = time.perf_counter()
+    gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7), device=dev)
+    ops = [gen.next_batch(B, BR) for _ in range(BRIDGE_CALLS * BRIDGE_MB + 1)]  # set-up
+    groups = [packed_groups(o) for o in ops]
+    calls = [groups[k * BRIDGE_MB:(k + 1) * BRIDGE_MB] for k in range(BRIDGE_CALLS)]
+    # The column bytes of each multi call: its frame is these and a few
+    # hundred bytes of ETF around them.
+    call_bytes = [sum(a.nbytes for g in batch for _, c, cols in g for a in (c, *cols)) for batch in calls]
+    if max(call_bytes) >= P.MAX_FRAME:
+        raise AssertionError(f"a multi call of {max(call_bytes)} bytes is past the frame limit {P.MAX_FRAME}")
+    geom = dict(n_ids=I, n_dcs=R, size=K, slots_per_id=M)
+    ops_per_call = [sum(int(c.sum()) for g in batch for _, c, _ in g) for batch in calls]
+
+    # (c), idle: scalar round trips on a server with nothing else to do.
+    with BridgeServer(device=dev) as srv, BridgeClient(*srv.address, timeout=600) as client:
+        idle = scalar_rate(srv.address, CONTENTION_S)
+
+        # (a): the timed run.
+        gc.collect()
+        wait()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        mem_base = torch.cuda.memory_allocated() if on_card else 0
+        before = counts()
+        client.grid_new("ns", "topk_rmv", n_replicas=R, n_keys=1, **geom)
+        grid = srv._grids[b"ns"]
+        split = {k: [] for k in ("parse", "build", "pack_ids", "stack", "upload", "apply", "readback")}
+        for key, attr in (("parse", "_parse_packed"), ("build", "_build_topk_rmv_arrays"), ("pack_ids", "_pack_ids"),
+                          ("stack", "_stack"), ("upload", "_upload"), ("apply", "_scan"), ("readback", "_readback")):
+            _timed(grid, attr, split[key], wait)
+        call_ms, call_split, dominated = [], [], []
+        for batch in calls:
+            mark = {k: len(v) for k, v in split.items()}
+            t0 = time.perf_counter()
+            dominated.append(client.grid_apply_packed_multi("ns", batch))
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            call_split.append({k: sum(v[mark[k]:]) for k, v in split.items()})
+        t0 = time.perf_counter()
+        extras = client.grid_apply_extras_packed("ns", groups[-1])
+        extras_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        client.grid_merge_all("ns")
+        wait()
+        merge_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        observed = client.grid_observe("ns", 0, 0)
+        observe_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9 if on_card else 0.0
+        a_launches = since(before)
+        for n in ("scatter_max_rows_copy", "delta_place", "sort_slots"):
+            if on_card and a_launches[n] < BRIDGE_CALLS * BRIDGE_MB + 1:
+                raise AssertionError(f"15a launched {n} {a_launches[n]} times for {len(ops)} apply rounds")
+
+        # The snapshot round trip, through the server's own dispatch: the
+        # snapshot is past the frame limit, so no socket carries it.
+        t0 = time.perf_counter()
+        reply = srv._dispatch(P.call(1, (Atom("grid_to_binary"), b"ns")))
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        blob = P.parse_reply(reply)[2]
+        snap_bytes = len(blob)
+        for req, op in ((2, (Atom("grid_from_binary"), b"ns2", blob)), (3, (Atom("grid_to_binary"), b"ns2"))):
+            rid, ok, got = P.parse_reply(srv._dispatch(P.call(req, op)))
+            if not ok:
+                raise AssertionError(f"{op[0]}: {got}")
+        if got != blob:
+            raise AssertionError("the north-star grid's snapshot did not survive its round trip")
+        del got
+
+        # The engine driven directly on the same planes, then the same fold.
+        dense = registry.make_dense("topk_rmv", **geom, device=dev)
+        state = dense.init(R, 1)
+        direct_dominated = []
+        for k, o in enumerate(ops[:-1]):
+            state, ex = dense.apply_ops(state, o)
+            direct_dominated.append(int(ex.dominated.sum()))
+        state, ex = dense.apply_ops(state, ops[-1], collect_promotions=True)
+        want_rmv, want_add = int(ex.dominated.sum()), int(ex.promoted.valid.sum())
+        del ex
+        state = fold_broadcast(torch, dense, state, R)
+        want = etf.encode(({Atom(k): v for k, v in grid.geometry.items()}, serial.dumps_dense("topk_rmv", state)))
+        if blob != want:
+            raise AssertionError("the wire-driven grid's snapshot differs from the engine driven directly")
+        del want
+        sums = [sum(direct_dominated[k * BRIDGE_MB:(k + 1) * BRIDGE_MB]) for k in range(BRIDGE_CALLS)]
+        got_rmv, got_add = ({tag: int(c.sum()) for tag, c, _ in extras}.get(t, 0) for t in ("rmv", "add"))
+        cell = dense.value(tree_map(lambda x: x[:1, :1], state))[0][0]
+        if dominated != sums or (got_rmv, got_add) != (want_rmv, want_add) or observed != cell or len(observed) != K:
+            raise AssertionError(f"15a's replies differ from the direct engine: dominated {dominated} / {sums}, "
+                                 f"extras {(got_rmv, got_add)} / {(want_rmv, want_add)}, observe {len(observed)}")
+        del state, dense, blob
+        srv._grids.pop(b"ns2")
+        gc.collect()
+
+        # (a) again with every kernel call held, while (c)'s scalar load
+        # runs on another connection.
+        before = counts()
+        held, load, stop = {}, {}, threading.Event()
+        client.grid_new("held", "topk_rmv", n_replicas=R, n_keys=1, **geom)
+        loader = threading.Thread(target=lambda: load.update(scalar_rate(srv.address, stop=stop)))
+        with held_against_plain(torch, held):
+            loader.start()
+            t0 = time.perf_counter()
+            for batch in calls:
+                client.grid_apply_packed_multi("held", batch)
+            held_window_s = time.perf_counter() - t0
+            stop.set()
+            loader.join()
+            client.grid_apply_extras_packed("held", groups[-1])
+            client.grid_merge_all("held")
+        held_launches = since(before)
+        held_calls = {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in kernel_of}
+        if on_card and (held_calls != {n: held_launches[n] for n in kernel_of} or any(
+                v["max_abs_err"] for v in held.values())):
+            raise AssertionError(f"15a's held run launched {held_launches}, held {held}")
+        if not all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(
+                leaves(srv._grids[b"held"].state), leaves(srv._grids[b"ns"].state))):
+            raise AssertionError("15a's held run ended in another state")
+        ratio = load["per_s"] / idle["per_s"]
+        if ratio < CONTENTION_MIN:
+            raise AssertionError(f"15c: scalar round trips fell to {ratio:.3f} of the idle rate under grid applies")
+    n_ops = sum(ops_per_call)
+    wire_s = sum(call_ms) / 1e3
+    log("15a bridge", card=card, replicas=R, ids=I, adds=B, removals=BR, calls=BRIDGE_CALLS,
+        batches_per_call=BRIDGE_MB, call_bytes=call_bytes, frame_limit=P.MAX_FRAME, ops_per_call=ops_per_call,
+        call_ms=call_ms, call_split_ms=call_split, extras_ms=extras_ms, merge_all_ms=merge_ms,
+        observe_ms=observe_ms, snapshot_ms=snap_ms, snapshot_bytes=snap_bytes,
+        wire_ops_per_s=n_ops / wire_s, main_path_merges_per_s=MAIN_PATH_RATES.get("merges_per_s"),
+        main_path_apply_merges_per_s=MAIN_PATH_RATES.get("apply_merges_per_s"), dominated=dominated,
+        extras_rmv=got_rmv, extras_add=got_add, equal_direct_engine=True, snapshot_round_trip=True,
+        launches=a_launches, held_against_plain=held, peak_mem_gb=peak_gb)
+    log("15c contention", card=card, idle_per_s=idle["per_s"], under_grid_applies_per_s=load["per_s"],
+        ratio=ratio, min_ratio=CONTENTION_MIN, idle_round_trips=idle["round_trips"],
+        loaded_round_trips=load["round_trips"], grid_window_s=held_window_s)
+
+    # (b): bench_grid_wire's mix at its own shapes, then its calls at
+    # WIRE_SMALL on the CPU and the card.
+    before = counts()
+    bm_held = {}
+    t0 = time.perf_counter()
+    full = run_wire(torch, dev, (WIRE_R, I, WIRE_B), counts=counts, held=bm_held)
+    mix_s = time.perf_counter() - t0
+    b_launches = {n: v - full["check_launches"][n] for n, v in since(before).items()}
+    bm = full["bm_launches"]
+    if any(v["max_abs_err"] for v in bm_held.values()):
+        raise AssertionError(f"15b's batch_merge op disagrees with the plain K3: {bm_held}")
+    if on_card and (b_launches["sort_slots_wide"] < 1 or bm["sort_slots"] < 1):
+        raise AssertionError(f"15b's batch_merge op launched {bm}")
+    # Narrow K3 launches of 9 to 16 candidates a row (the half-warp path):
+    # the batch_merge op's converter call at W = M (its fold's held calls
+    # run at W = 2M) and any fold call that narrow.
+    fold_w = {}
+    for k, v in bm_held.items():
+        w = int(k.split()[1][2:])
+        fold_w[w] = fold_w.get(w, 0) + v["calls"]
+    converter = bm["sort_slots"] + bm["sort_slots_wide"] - sum(fold_w.values())
+    half_warp = (converter if 9 <= max(fold_w, default=0) // 2 <= 16 else 0) + sum(
+        n for w, n in fold_w.items() if 9 <= w <= 16) if on_card else 0
+    small = {d: run_wire(torch, d, WIRE_SMALL, snapshots=True) for d in ("cpu", dev)}
+    for key in ("replies", "snapshots", "batch_merge_blob", "grid_observe"):
+        if small["cpu"][key] != small[dev][key]:
+            raise AssertionError(f"15b's {key} at {WIRE_SMALL} differ between the CPU and the card")
+    log("15b wire mix", card=card, replicas=WIRE_R, ops_per_call=WIRE_B, calls=WIRE_CALLS, multi_batches=WIRE_MB,
+        ops_per_s=full["rates"], batch_merge_states=WIRE_BM_STATES, batch_merge_ms=full["batch_merge_ms"],
+        batch_merge_launches=bm, batch_merge_half_warp=half_warp, held_against_plain=bm_held, launches=b_launches,
+        mix_s=mix_s,
+        small_geometry=dict(zip(("R", "I", "B"), WIRE_SMALL)), equal_cpu_card=True,
+        phase_s=time.perf_counter() - t_phase)
+    total = {n: a_launches[n] + b_launches[n] for n in a_launches}
+    return {"scatter_max_rows": total["scatter_max_rows"], "scatter_max_rows_copy": total["scatter_max_rows_copy"],
+            "delta_place": total["delta_place"], "sort_slots": total["sort_slots"] - half_warp,
+            "sort_slots_9_16": half_warp, "sort_slots_wide": total["sort_slots_wide"],
+            "sort_slots_block": total["sort_slots_block"], "sort_slots_global": total["sort_slots_global"]}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -3247,6 +3744,7 @@ def main() -> int:
     gossip = phase_gossip(torch, card)
     fleet = phase_fleet(torch, card)
     paged = phase_overlap_pager(torch, card)
+    bridge = phase_bridge(torch, card)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -3273,7 +3771,8 @@ def main() -> int:
     by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in sources}
     for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
                       ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
-                      ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged)):
+                      ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged),
+                      ("bridge (phase 15)", bridge)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

@@ -828,3 +828,99 @@ def test_phase_14_reduced_flows_on_card_equal_cpu(cuda):
     for key in ("digest_vector", "observable", "counters", "hit_rates"):
         assert ws["cpu"][key] == ws[cuda.type][key], key
     assert ws[cuda.type]["cold_tier_pinned"]
+
+
+# --- the bridge server on the card (bridge/server.py) ------------------------
+
+from bridge_ops import TYPES as BRIDGE_TYPES  # noqa: E402
+
+
+def _bridge_replies(dev, ops, setup=None):
+    """The reply frames a BridgeServer on `dev` writes for `ops`, as bytes
+    (`setup(server)` first)."""
+    from antidote_ccrdt_tpu_torch.bridge import BridgeServer
+    from bridge_ops import Raw
+
+    with BridgeServer(device=dev) as srv:
+        if setup:
+            setup(srv)
+        conn = Raw(srv.address)
+        try:
+            return [conn.ask(op, i) for i, op in enumerate(ops)]
+        finally:
+            conn.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BRIDGE_TYPES)
+def test_bridge_card_server_equals_cpu_server(cuda, name):
+    """One seeded script of a grid's whole surface (tuple, packed,
+    packed-multi and extras applies, merge_all, applies on the broadcast
+    state, observes, snapshots, error frames): a server on the card writes
+    the CPU server's reply frames byte for byte."""
+    from bridge_ops import grid_script
+
+    ops = grid_script(name, np.random.default_rng(BRIDGE_TYPES.index(name)))
+    assert _bridge_replies(cuda, ops) == _bridge_replies("cpu", ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed_ids_limit", [2**31, 0], ids=["packed_ids", "eight_planes"])
+def test_bridge_multi_equals_sequential_on_card(cuda, monkeypatch, packed_ids_limit):
+    """grid_apply_packed_multi of 4 batches on the card: the dominated
+    count and the snapshot of 4 sequential grid_apply_packed calls, for
+    every type (topk_rmv with and without the packed-ids upload)."""
+    from antidote_ccrdt_tpu_torch.bridge import server as server_mod
+    from antidote_ccrdt_tpu_torch.core import etf
+    from bridge_ops import A, GEOMETRY, NK, R, packed, tuple_ops
+
+    monkeypatch.setattr(server_mod, "_PACKED_IDS_LIMIT", packed_ids_limit)
+    for name in BRIDGE_TYPES:
+        rng = np.random.default_rng(40 + BRIDGE_TYPES.index(name))
+        batches = [packed(name, tuple_ops(name, rng, 10)) for _ in range(4)]
+        geo = {A(k): v for k, v in dict(n_replicas=R, n_keys=NK, **GEOMETRY[name]).items()}
+        multi = _bridge_replies(cuda, [(A("grid_new"), b"m", A(name), geo), (A("grid_apply_packed_multi"), b"m", batches),
+                                       (A("grid_to_binary"), b"m")])
+        seq = _bridge_replies(cuda, [(A("grid_new"), b"m", A(name), geo)] + [
+            (A("grid_apply_packed"), b"m", b) for b in batches] + [(A("grid_to_binary"), b"m")])
+        result = [etf.decode(f[4:])[2][1] for f in seq]
+        assert etf.decode(multi[1][4:])[2][1] == sum(result[1:-1]), name
+        assert etf.decode(multi[-1][4:])[2][1] == result[-1], name
+
+
+@pytest.mark.cuda
+def test_bridge_merge_all_broadcast_then_apply_on_card(cuda):
+    """merge_all leaves a JOIN grid as a stride-0 broadcast of the fold;
+    the next apply (K1c on that table, K3 on its slots) reads it without
+    writing into it, and the grid ends as the CPU server's does."""
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+    from bridge_ops import A, GEOMETRY, NK, R, tuple_ops
+
+    rng = np.random.default_rng(7)
+    b0, b1 = tuple_ops("topk_rmv", rng, 12), tuple_ops("topk_rmv", rng, 12)
+    geo = {A(k): v for k, v in dict(n_replicas=R, n_keys=NK, **GEOMETRY["topk_rmv"]).items()}
+    ops = [(A("grid_new"), b"g", A("topk_rmv"), geo), (A("grid_apply"), b"g", b0), (A("grid_merge_all"), b"g")]
+    seen = {}
+
+    def check_broadcast(srv):
+        grid_state = srv._grids[b"g"].state
+        if grid_state.slot_score.device.type == "cuda":
+            seen["strides"] = [x.stride(0) for x in leaves(grid_state)]
+            seen["before"] = [x.clone() for x in leaves(grid_state)]
+            seen["leaves"] = leaves(grid_state)
+
+    rest = [(A("grid_apply_extras"), b"g", b1), (A("grid_merge_all"), b"g"), (A("grid_to_binary"), b"g")]
+    from antidote_ccrdt_tpu_torch.bridge import BridgeServer
+    from bridge_ops import Raw
+
+    frames = {}
+    for dev in ("cpu", cuda):
+        with BridgeServer(device=dev) as srv:
+            conn = Raw(srv.address)
+            frames[str(dev)] = [conn.ask(op, i) for i, op in enumerate(ops)]
+            check_broadcast(srv)
+            frames[str(dev)] += [conn.ask(op, len(ops) + i) for i, op in enumerate(rest)]
+            conn.close()
+    assert seen["strides"] == [0] * 6
+    assert all(torch.equal(x, y) for x, y in zip(seen["leaves"], seen["before"]))
+    assert frames["cpu"] == frames[str(cuda)]

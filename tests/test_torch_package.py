@@ -18,7 +18,8 @@ REPO = Path(__file__).resolve().parent.parent
 # Modules of the compaction and MONOID slice, the validation module, the
 # durable host path (its nine modules), the gossip plane, the serve
 # plane with the audit certifiers, and the overlapped round pipeline
-# with the partition pager; the walk must import each.
+# with the partition pager, and the bridge server and client; the walk
+# must import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -34,6 +35,8 @@ NEW_MODULES = [
     "serve.plane", "serve.router", "serve.ingest", "serve.write_session", "obs.audit",
     # the overlapped round pipeline and the partition pager
     "parallel.overlap", "core.pager",
+    # the bridge server and client
+    "bridge.server", "bridge.client",
 ]
 
 
@@ -80,6 +83,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LawChecker(types=["average"], pairs=2).run()
     assert WriteSession(WriteRouter(["w0"], lambda *a: b""), "topk_rmv", device="cpu").device.type == "cpu"
+    # The bridge server resolves its device once, when it is built: its
+    # grids, batch_merge and grid_compact never fall back to the CPU.
+    from antidote_ccrdt_tpu_torch.bridge import BridgeServer
+    from antidote_ccrdt_tpu_torch.bridge.server import _Grid
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BridgeServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _Grid("average", {})
+    with BridgeServer(device="cpu") as srv:
+        assert srv.device.type == "cpu"
     # An explicit CPU device is the one way to the plain path.
     assert registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, device="cpu").device.type == "cpu"
 

@@ -347,6 +347,10 @@ class torch_jnp:
     def full(shape, fill_value, dtype=None):
         return torch.full(shape, fill_value, dtype=dtype)
 
+    @staticmethod
+    def ones(shape, dtype=None):
+        return torch.ones(shape, dtype=dtype)
+
 
 def leaf_bytes(state):
     """(dtype, shape, bytes) of every leaf in order: equal for equal
@@ -452,6 +456,37 @@ def serve_engine():
     """``tests/test_serve.py``'s engine (I = 8 ids, 2 DCs, K = 10, M = 2)
     in the port, on the device the caller's region gives it."""
     return registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, size=10, slots_per_id=2)
+
+
+# tests/test_serve.py's replica count (its `R`), for files that import it
+# with `_engine` and `_apply`.
+SERVE_R = 2
+_SERVE_HELPERS = {}
+
+
+def _serve_helpers():
+    """``tests/test_serve.py``'s `_apply` and ``tests/test_serve_parity.py``'s
+    `_frozen_plane` through the port (each engine on the device of the
+    caller's region)."""
+    if not _SERVE_HELPERS:
+        jnp = ("import jax.numpy as jnp", "from torch_twins import torch_jnp as jnp")
+        serve = ("from antidote_ccrdt_tpu import serve", "from antidote_ccrdt_tpu_torch import serve")
+        _SERVE_HELPERS.update(port_copy("test_serve.py", replace=[jnp, serve], helpers=["_apply"]))
+        _SERVE_HELPERS.update(port_copy("test_serve_parity.py", replace=[serve, (
+            "from tests.test_serve import R, _apply, _engine",
+            "from torch_twins import SERVE_R as R, serve_apply as _apply, serve_engine as _engine"),
+            ("BridgeServer(port=0)", 'BridgeServer(port=0, device="cpu")')], helpers=["_frozen_plane"]))
+    return _SERVE_HELPERS
+
+
+def serve_apply(dense, state, ids, scores, **kw):
+    """``tests/test_serve.py``'s `_apply` through the port."""
+    return _serve_helpers()["_apply"](dense, state, ids, scores, **kw)
+
+
+def serve_frozen_plane(metrics=None):
+    """``tests/test_serve_parity.py``'s `_frozen_plane` through the port."""
+    return _serve_helpers()["_frozen_plane"](metrics)
 
 
 class torch_jax:
