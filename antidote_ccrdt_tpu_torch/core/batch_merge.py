@@ -87,6 +87,16 @@ def _leaves(tree: Any) -> List[torch.Tensor]:
     return out
 
 
+def _copy_leaf(x: torch.Tensor) -> torch.Tensor:
+    """A clone that keeps a mesh-placed leaf's ``sharding`` tag (as the
+    JAX package's jitted copy keeps its operand's sharding)."""
+    out = torch.clone(x)
+    sharding = getattr(x, "sharding", None)
+    if sharding is not None:
+        out.sharding = sharding
+    return out
+
+
 def snapshot_state(state: Any) -> Any:
     """A copy of every tensor leaf of a state: a held snapshot that no
     later merge can touch. Observed as the ``batch_merge.snapshot``
@@ -99,8 +109,8 @@ def snapshot_state(state: Any) -> Any:
     try:
         if profile.ACTIVE or devprof.ACTIVE:
             with profile.dispatch("batch_merge.snapshot", operands=(state,)):
-                return _tree_map(torch.clone, state)
-        return _tree_map(torch.clone, state)
+                return _tree_map(_copy_leaf, state)
+        return _tree_map(_copy_leaf, state)
     finally:
         obs_spans.end(tok)
 

@@ -14,7 +14,7 @@ stats.
 Residency model
 ---------------
 A `PartitionPager` splits one instance's partitions (only
-`MeshPlan.owned_parts` under the mesh — each chip pages its own
+`MeshPlan.owned_parts` under the mesh — each key shard pages its own
 partitions independently) into two tiers:
 
 * **hot** — resident in the device state exactly as before. Ops,

@@ -34,8 +34,9 @@ a partition's whole durable footprint — its checkpoint shard and its
 WAL stream — can be recovered, compacted, or streamed to a rejoining
 worker without touching its siblings.
 
-The mesh variant (``save_mesh_checkpoint``) waits for the port of
-``mesh/`` (ROADMAP A10).
+The mesh variant (``save_mesh_checkpoint``) writes the same files shard
+by shard: each key shard of a ``mesh.MeshPlan`` saves the partitions it
+owns, then one manifest commits the whole.
 """
 
 from __future__ import annotations
@@ -407,6 +408,29 @@ def _write_manifest(
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(root, _MANIFEST))
+
+
+def save_mesh_checkpoint(
+    root: str, name: str, state: Any, dense: Any, step: int, plan: Any,
+    pager: Any = None,
+) -> int:
+    """Shard-grouped checkpoint: each key shard of a `mesh.MeshPlan`
+    persists exactly the partitions it owns (`parts=owned_parts(s)`),
+    then the manifest commits the whole — the mesh counterpart of
+    `save_partitioned_checkpoint`, producing byte-identical files
+    (pinned by test_mesh.py). The digest vector in the manifest is
+    produced shard-by-shard and stitched (mesh/gossip.py)."""
+    from ..mesh import gossip as mesh_gossip
+
+    total = 0
+    for s in range(plan.n_key):
+        total += save_partitioned_checkpoint(
+            root, name, state, dense, step,
+            partitions=plan.P, parts=plan.owned_parts(s), pager=pager,
+        )
+    digests = mesh_gossip.sharded_digest_vector(state, plan, pager=pager)
+    _write_manifest(root, name, step, plan.P, digests)
+    return total
 
 
 def load_partitioned_checkpoint(

@@ -415,18 +415,20 @@ class ElasticWal:
         self.partitions = partitions
         self.metrics = metrics if metrics is not None else Metrics()
         self.durability = durability_mode(durability)
-        # A mesh plan routes streams by key-shard ownership; it waits
-        # for the port of mesh/ (ROADMAP A10).
-        if mesh_plan is not None:
-            raise NotImplementedError(
-                "ElasticWal(mesh_plan=) needs mesh/, which is not ported yet"
-            )
+        # mesh/plan.MeshPlan: stream count follows the key-shard count
+        # and routing follows shard ownership, so each stream holds
+        # exactly one shard's partitions — a shard's WAL slice is
+        # self-contained (the per-shard recombination test_mesh.py pins).
+        # Explicit `streams`/env still wins: operators outrank the plan.
+        self.mesh_plan = mesh_plan
         env_streams = os.environ.get("CCRDT_WAL_STREAMS", "")
         if streams is None and env_streams:
             try:
                 streams = int(env_streams)
             except ValueError:
                 streams = None
+        if streams is None and mesh_plan is not None:
+            streams = mesh_plan.n_key
         if streams is None:
             streams = min(4, partitions) if partitions else 1
         # A reader must open every stream that EXISTS on disk, however
@@ -531,7 +533,12 @@ class ElasticWal:
         )
 
     def stream_for_part(self, part: int) -> int:
-        """Partition -> stream index: the `% nstreams` fold."""
+        """Partition -> stream index. With a mesh plan this is shard
+        ownership (`MeshPlan.shard_of`, clamped to the streams that
+        exist); without one it is the same `% nstreams` fold — identical
+        routes when nstreams == n_key, by construction of `shard_of`."""
+        if self.mesh_plan is not None:
+            return self.mesh_plan.shard_of(int(part)) % self.nstreams
         return int(part) % self.nstreams
 
     def _stream_for(self, parts) -> WriteAheadLog:

@@ -626,26 +626,30 @@ class GossipNode:
         like a snapshot — tiny) plus psnap blobs for every partition whose
         digest changed since the last anchor (ALL partitions on the first;
         the psnap store is cumulative, so it is complete from then on).
-        With a `mesh.MeshPlan` the JAX package produces them shard by
-        shard; that plane is not ported yet (ROADMAP A10): `plan` raises
-        `NotImplementedError`. With a `core.pager.PartitionPager`,
-        digests and psnaps for demoted partitions come from the pager's
-        stored CCPT blobs — the transfer format is the storage format,
-        so a cold partition is served without hydrating. Returns the
-        digest vector, or None when the medium has no partition
-        surface."""
+        With a `mesh.MeshPlan`, the digest vector and the psnaps are
+        produced shard by shard — each key shard contributes exactly the
+        slice it owns, stitched back into the same wire blobs (the
+        artifacts are byte-identical either way, which test_mesh.py
+        pins), billing per-shard counters for the chaos gate. With a
+        `core.pager.PartitionPager`, digests and psnaps for demoted
+        partitions come from the pager's stored CCPT blobs — the
+        transfer format is the storage format, so a cold partition is
+        served without hydrating. Returns the digest vector, or None
+        when the medium has no partition surface."""
         from ..core import partition as pt
         from ..core import serial
 
-        if plan is not None:
-            raise NotImplementedError(
-                "publish_partitioned(plan=): the mesh plane (mesh/gossip) is not ported yet"
-            )
         pub_dig = getattr(self.transport, "publish_digest", None)
         pub_ps = getattr(self.transport, "publish_psnap", None)
         if pub_dig is None or pub_ps is None:
             return None
-        if pager is not None and pager.has_cold():
+        if plan is not None:
+            from ..mesh import gossip as mesh_gossip
+
+            vec = mesh_gossip.sharded_digest_vector(
+                state, plan, metrics=self.metrics, pager=pager
+            )
+        elif pager is not None and pager.has_cold():
             vec = pager.digest_vector(state)
         else:
             vec = pt.state_digests(state, P)
@@ -658,6 +662,20 @@ class GossipNode:
             if prev is None or len(prev) != len(vec)
             else pt.divergent_parts(prev, vec)
         )
+        if plan is not None:
+            from ..mesh import gossip as mesh_gossip
+
+            for shard, _parts in mesh_gossip.group_parts_by_shard(
+                plan, changed
+            ):
+                for part, blob in mesh_gossip.shard_psnap_blobs(
+                    name, state, seq, dense, plan, shard, parts=changed,
+                    pager=pager,
+                ):
+                    self.metrics.count("net.psnap_publishes")
+                    self.metrics.count(f"mesh.shard{shard:02d}.psnap_publishes")
+                    pub_ps(part, blob)
+            changed = []
         for part in changed:
             if pager is not None:
                 blob = pager.psnap_blob(state, seq, part)

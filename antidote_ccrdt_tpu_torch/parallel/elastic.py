@@ -4,8 +4,8 @@ SURVEY.md §5 marks "failure detection / elastic recovery" absent in the
 reference (delegated to the Antidote host). This module is that tier,
 built the CRDT way rather than the collective way:
 
-* `parallel.multihost` / `parallel.dist` (the JAX package's; not ported
-  yet, ROADMAP A10) are the FAST path — SPMD collectives. Collectives
+* `parallel.multihost` (the JAX package's; not ported yet, ROADMAP
+  A10) and `parallel.dist` are the FAST path — collectives. Collectives
   need a fixed, fully-alive world: a dead peer hangs the program, and a
   process group cannot shrink without a restart.
 * This module is the FAILURE-TOLERANT path: members exchange whole
@@ -54,9 +54,9 @@ card a sweep runs the engine's kernels (K3 for topk_rmv) on states that
 ``core.serial.loads_dense`` decoded onto the card. With a
 ``core.pager.PartitionPager`` (``pager=``), anchors publish the logical
 state, digests and psnaps of cold partitions come from the pager, and
-payloads touching cold partitions fold host-side. The device-sharded
-plane (``mesh_plan=``) is not ported yet (ROADMAP A10): passing it
-raises `NotImplementedError`.
+payloads touching cold partitions fold host-side. With a
+``mesh.MeshPlan`` (``mesh_plan=``), anchors produce digests and psnaps
+shard by shard and partial repairs fetch shard by shard.
 """
 
 from __future__ import annotations
@@ -71,12 +71,6 @@ from ..obs import profile
 from ..obs import spans as obs_spans
 from ..utils.metrics import Metrics
 from .delta import empty_delta  # noqa: F401 — part of this module's API
-
-
-def _not_ported(where: str, mesh_plan: Any = None) -> None:
-    """Raise for the plane the port does not have yet."""
-    if mesh_plan is not None:
-        raise NotImplementedError(f"{where}(mesh_plan=): the mesh plane (mesh/) is not ported yet")
 
 
 # Ingest fast-path knobs. CCRDT_INGEST_COMPACT=0 is the bit-identical
@@ -135,7 +129,6 @@ class DeltaPublisher:
         from ..core.behaviour import MergeKind
         from .monoid import MonoidLift
 
-        _not_ported("DeltaPublisher", mesh_plan)
         if getattr(dense, "merge_kind", None) == MergeKind.MONOID:
             dense = MonoidLift(dense)
         self.store = store
@@ -163,6 +156,11 @@ class DeltaPublisher:
         # None = whole-instance gossip only (the legacy path, and what a
         # mixed-version fleet degrades to).
         self.partitions = partitions
+        # mesh/plan.MeshPlan: anchors produce digest slices + psnaps
+        # shard by shard (mesh/gossip.py) instead of in one whole-state
+        # walk; the published wire blobs are byte-identical, so peers
+        # never see the difference. None = unsharded production.
+        self.mesh_plan = mesh_plan
         # core/pager.PartitionPager: under out-of-core paging the device
         # state is only the HOT slice of the logical state. Anchors then
         # publish `pager.full_state` (the logical join) so whole-snapshot
@@ -297,7 +295,7 @@ class DeltaPublisher:
                 # psnaps go alongside.
                 self.store.publish_partitioned(
                     self.name, state, self.seq, self.dense, self.partitions,
-                    pager=self.pager,
+                    plan=self.mesh_plan, pager=self.pager,
                 )
             self._wire_prev = state
             self._last_state = state
@@ -443,7 +441,6 @@ class PartialAntiEntropy:
     ):
         from ..core import partition as pt
 
-        _not_ported("PartialAntiEntropy", mesh_plan)
         self.store = store
         self.partitions = partitions if partitions else pt.n_partitions()
         self.max_tries = max(1, max_tries)
@@ -456,6 +453,12 @@ class PartialAntiEntropy:
         # wedge clock (note_repair_progress) — this resync loop IS the
         # repair whose absence the wedged-divergence alarm detects.
         self.watchdog = watchdog
+        # mesh/plan.MeshPlan: divergent-partition fetches are grouped by
+        # owning key shard (mesh/gossip.group_parts_by_shard) so a
+        # repair pulls shard-local psnap slices and stitches them back
+        # together, billing `mesh.cross_slice_fetches` / `.cross_slice_
+        # bytes`. None = the flat fetch order (unsharded behavior).
+        self.mesh_plan = mesh_plan
         # core/pager.PartitionPager: digest vectors come from
         # `pager.digest_vector` (device entries for hot partitions,
         # cached CCPT digests for cold) and fetched psnaps targeting
@@ -507,10 +510,21 @@ class PartialAntiEntropy:
                 self.store.metrics.count("net.psnap_wasted")
                 continue
             fetch_parts.append(p)
+        if self.mesh_plan is not None:
+            # Shard-local slices: fetch in owning-shard order, one
+            # shard's partitions at a time, and stitch the repairs back
+            # together (the join is order-free, so grouping is free).
+            from ..mesh import gossip as mesh_gossip
+
+            groups = mesh_gossip.group_parts_by_shard(
+                self.mesh_plan, fetch_parts
+            )
+            fetch_parts = [p for _s, ps in groups for p in ps]
         self.store.request_psnaps(member, fetch_parts)
         like = like_delta_for(dense, state)
         repaired_by_seq = set()
         fetched = 0
+        bytes_before = self.store.metrics.counters.get("net.psnap_bytes", 0.0)
         for p in fetch_parts:
             r = self.store.fetch_psnap(
                 member, p, like,
@@ -529,8 +543,17 @@ class PartialAntiEntropy:
             except Exception:  # noqa: BLE001 — total, same as sweep
                 continue
             fetched += 1
+            if self.mesh_plan is not None:
+                self.store.metrics.count("mesh.cross_slice_fetches")
             if ps_seq >= dig_seq:
                 repaired_by_seq.add(p)
+        if self.mesh_plan is not None and fetched:
+            bytes_after = self.store.metrics.counters.get(
+                "net.psnap_bytes", 0.0
+            )
+            self.store.metrics.count(
+                "mesh.cross_slice_bytes", float(bytes_after - bytes_before)
+            )
         post_vec = self._own_vec(state)
         outstanding = [
             p for p in fetch_parts

@@ -754,7 +754,7 @@ class OverlapPipeline:
         # expanded window straight into the device state would land rows
         # the pager's cached cold digests can't see.
         self.pager = pager
-        # Mesh hook (the JAX package's mesh/reduce.py): called as
+        # Mesh hook (mesh/reduce.py): called as
         # post_fold(state) on the ROUND thread after a drain actually
         # folded windows in — where an intra-slice reduce belongs (fresh
         # peer rows just landed; pre-join them before the next publish).

@@ -109,11 +109,19 @@ class ReadReplica:
             obs_spans.end(tok)
         if self.metrics is not None:
             self.metrics.count("serve.swaps")
-            # A tensor lives on one device: the live snapshot spans one
-            # shard (the JAX package gauges its sharding's device set,
-            # one device for an unsharded state).
-            if isinstance(next(iter(leaves(snap.state)), None), torch.Tensor):
-                self.metrics.set("serve.replica_shards", 1.0)
+            # Mesh-sharded states: the snapshot copy keeps each leaf's
+            # sharding (core.batch_merge.snapshot_state), so the replica
+            # holds per-device shards, never a gathered whole — gauge how
+            # many logical devices the live snapshot spans (one for an
+            # unsharded tensor) so the obs plane can prove reads stayed
+            # shard-resident.
+            leaf = next(iter(leaves(snap.state)), None)
+            if isinstance(leaf, torch.Tensor):
+                sharding = getattr(leaf, "sharding", None)
+                self.metrics.set(
+                    "serve.replica_shards",
+                    float(len(sharding.device_set)) if sharding is not None else 1.0,
+                )
         obs_events.emit(
             "serve.swap", seq=snap.seq, lag_bound_s=round(snap.lag_bound_s, 6)
         )

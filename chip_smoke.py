@@ -168,8 +168,24 @@ Phases, each printing one line (any failure exits non-zero):
    the direct batch_merge, its fold's K3 calls held), and the same calls
    at R = 4, I = 4 096 on the CPU and the card with equal replies,
    snapshots and batch_merge states;
-16. the kernels line (launches on each path that drives a kernel, phases
-   9-15 included), then the ok line.
+16. mesh: (a) phase 4's engine and op stream, each replica row fed its
+   own batches for 3 rounds, placed on a (dc, key) = (2, 4) ``MeshPlan``
+   over eight logical devices of the card (P = 8), then ``ici_reduce``
+   (8 K3 joins, each held against the plain K3 in a second reduce): each
+   row is the join of its dc block, the fold's observable is unchanged, a
+   second reduce changes no bit, the leaves stay tagged, the stitched
+   digest vector, every shard's psnap blobs and ``save_mesh_checkpoint``'s
+   files equal the unsharded producers', the plan over the real device
+   list is (1, 1) and ``install_from_env`` is None; (b)
+   ``IdShardedTopkRmv`` on the same mesh at the main path's width (25 000
+   ids a shard) fed phase 4's global-id batches for 4 rounds against the
+   unsharded engine: equal ``observe`` and tables, ``merge_replicas`` rows
+   the dc block joins, one round's K1c, K2 and K3 calls held; (c)
+   ``tests/test_mesh.py``'s mesh chaos drill (seed 7) and
+   ``tests/test_parallel.py``'s sharded leaderboard, topk and wordcount at
+   their own shapes, equal on the CPU and the card;
+17. the kernels line (launches on each path that drives a kernel, phases
+   9-16 included), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -312,6 +328,20 @@ WIRE_SMALL = (4, 4_096, 512)
 # applies run on another connection; the second rate must be at least
 # CONTENTION_MIN of the first.
 CONTENTION_S, CONTENTION_MIN = 2.0, 0.1
+# Phase 16, the single-process mesh plane: a (dc, key) = (2, 4) MeshPlan
+# over eight logical devices on the card, P = 8 partitions
+# (tests/test_mesh.py's geometry). 16a: phase 4's engine and op stream,
+# each replica row fed its own batches for MESH_ROUNDS rounds, so that
+# the rows diverge, then the dc all-reduce. 16b: IdShardedTopkRmv over the
+# same mesh at the main path's width (I / 4 ids a shard), phase 4's
+# global-id batches for MESH_ID_ROUNDS rounds.
+MESH_DC, MESH_KEY, MESH_PARTS, MESH_ROUNDS, MESH_ID_ROUNDS = 2, 4, 8, 3, 4
+# 16c: tests/test_mesh.py's run_mesh_chaos at scripts/elastic_demo.py's
+# shapes (R = D = 4, I = 64, B = 32, Br = 8, K = 8, M = 2, uniform ids; 4
+# members on SimNet(seed, loss 3 %, duplication 3 %), a partition at step
+# 3 healed at 6, m3 crashed at 7, 10 steps, a tail of at most 40 rounds),
+# and tests/test_parallel.py's sharded leaderboard, topk and wordcount.
+MESH_CHAOS_GEO, MESH_CHAOS_K, MESH_CHAOS_M, MESH_CHAOS_SEED = (4, 64, 32, 8), 8, 2, 7
 
 
 # Phase 4's merge rates, read again beside phase 15's wire rates.
@@ -1557,13 +1587,14 @@ def phase_durable_host(torch, card: str, dev: str = "cuda") -> dict:
 class GossipOps:
     """scripts/elastic_demo.py's op streams at a given width: the ops of
     replica r at a step come from ``default_rng(10 000 (step + 1) + r)``
-    (ids Zipf(1.2) over the id space as phase 4 draws them, scores in
+    (ids Zipf(1.2) over the id space as phase 4 draws them, or uniform
+    as elastic_demo draws them with ``zipf=False``; scores in
     [1, 500), ts = step B + j + 1, dc = r mod D, Br removals carrying a
     vc on that dc); a batch holds the owned replicas' ops, the others'
     rows are padding."""
 
-    def __init__(self, r: int, ids: int, b: int, br: int, dev: str):
-        self.r, self.ids, self.b, self.br, self.dev = r, ids, b, br, dev
+    def __init__(self, r: int, ids: int, b: int, br: int, dev: str, zipf: bool = True):
+        self.r, self.ids, self.b, self.br, self.dev, self.zipf = r, ids, b, br, dev, zipf
         self._rows = {}
 
     def rows(self, step: int, x: int):
@@ -1572,7 +1603,10 @@ class GossipOps:
             import numpy as np
 
             rng = np.random.default_rng(10_000 * (step + 1) + x)
-            ids = ((rng.zipf(1.2, self.b) - 1) % self.ids).astype(np.int32)
+            if self.zipf:
+                ids = ((rng.zipf(1.2, self.b) - 1) % self.ids).astype(np.int32)
+            else:  # elastic_demo's own draw
+                ids = rng.integers(0, self.ids, self.b).astype(np.int32)
             scores = rng.integers(1, 500, self.b).astype(np.int32)
             rmv_id = rng.integers(0, self.ids, self.br).astype(np.int32)
             rmv_t = rng.integers(1, max(2, step * self.b + 1), self.br).astype(np.int32)
@@ -3711,6 +3745,466 @@ def phase_bridge(torch, card: str, dev: str = "cuda") -> dict:
             "sort_slots_block": total["sort_slots_block"], "sort_slots_global": total["sort_slots_global"]}
 
 
+def mesh_counts():
+    """The launch counters of the kernels the mesh plane drives."""
+    from antidote_ccrdt_tpu_torch.ops import kernels
+    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
+
+    return {"scatter_max_rows_copy": kernels.scatter_max_rows_copy.launches, "delta_place": delta_place.launches,
+            "sort_slots": kernels.sort_slots.launches}
+
+
+def _since(before: dict) -> dict:
+    now = mesh_counts()
+    return {n: now[n] - before[n] for n in now}
+
+
+def _same(torch, a, b) -> bool:
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def _dc_block_joins(dense, state, n_dc: int):
+    """Each row r replaced by the join of its dc block (the rows
+    congruent to r mod R / n_dc), built with `dense.merge` as
+    tests/test_mesh.py builds it: block 0 first, then the others in
+    order."""
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves, tree_map
+
+    rows = leaves(state)[0].shape[0] // n_dc
+    acc = tree_map(lambda x: x[:rows], state)
+    for j in range(1, n_dc):
+        acc = dense.merge(acc, tree_map(lambda x, j=j: x[j * rows:(j + 1) * rows], state))
+    return tree_map(lambda x: x.repeat((n_dc,) + (1,) * (x.dim() - 1)), acc)
+
+
+def run_mesh_reduce(torch, dev: str, geo, *, held=None, checks: bool = True) -> dict:
+    """16a at width `geo` = (R, I, B, Br) on `dev`: phase 4's engine, each
+    row fed its own batches for MESH_ROUNDS rounds, placed on a (2, 4)
+    plan over eight logical devices of `dev`, then `ici_reduce`. Gates:
+    each reduced row is the join of its dc block; the fold's observable
+    is unchanged; a second reduce changes no bit; the leaves stay tagged;
+    a reduce with every K3 call held against the plain K3 (`held`) ends in
+    the same state; the stitched digests, every shard's psnap blobs and
+    `save_mesh_checkpoint`'s files equal the unsharded producers'; the
+    plan over the real device list is (1, 1) with an identity reduce, and
+    `install_from_env` is None there. Times on the host clock, synced."""
+    import tempfile
+
+    from antidote_ccrdt_tpu_torch import mesh as mesh_mod
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.core import partition as pt
+    from antidote_ccrdt_tpu_torch.core import serial
+    from antidote_ccrdt_tpu_torch.harness.checkpoint import save_mesh_checkpoint, save_partitioned_checkpoint
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.mesh import MeshPlan
+    from antidote_ccrdt_tpu_torch.mesh import gossip as mesh_gossip
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.metrics import Metrics
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves, tree_map
+
+    r, ids, b, br = geo
+    on_card = torch.device(dev).type == "cuda"
+    wait = sync if on_card else (lambda: None)
+    dense = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=K, slots_per_id=M, device=dev)
+    gen = TopkRmvEffectGen(Workload(r, ids, zipf_a=1.2, score_max=100_000, seed=7), device=dev)
+    state = dense.init(r, 1)
+    for _ in range(MESH_ROUNDS):
+        state = dense.apply_ops(state, gen.next_batch(b, br), collect_dominated=False)[0]
+    plan = MeshPlan.build(n_dc=MESH_DC, n_key=MESH_KEY, partitions=MESH_PARTS, devices=[dev] * (MESH_DC * MESH_KEY))
+    placed = plan.place(state)
+    gc.collect()
+    wait()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated() if on_card else 0
+    m = Metrics()
+    before = mesh_counts()
+    t0 = time.perf_counter()
+    red = mesh_mod.ici_reduce(dense, plan, placed, metrics=m)
+    wait()
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    red2 = mesh_mod.ici_reduce(dense, plan, red)
+    wait()
+    launches = _since(before)
+    peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9 if on_card else 0.0
+    half = r // MESH_DC
+    t0 = time.perf_counter()
+    one_merge = dense.merge(tree_map(lambda x: x[:half], state), tree_map(lambda x: x[half:], state))
+    wait()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    del one_merge
+    out = dict(state=state, reduced=red, reduce_ms=reduce_ms, merge_ms=merge_ms, peak_gb=peak_gb,
+               launches=launches, counters=dict(m.counters))
+    if not checks:
+        return out
+    if not _same(torch, red, _dc_block_joins(dense, state, MESH_DC)):
+        raise AssertionError("16a: a reduced row is not the join of its dc block")
+    if _same(torch, red, state):
+        raise AssertionError("16a: the reduce changed no row (the rows did not diverge)")
+
+    def observable(st):
+        return dense.value(fold_rows(dense, st, range(r)))[0][0]
+
+    if observable(red) != observable(state):
+        raise AssertionError("16a: the reduce changed the fold's observable")
+    if not _same(torch, red2, red):
+        raise AssertionError("16a: a second reduce changed the state")
+    for st in (red, red2):
+        if not all(getattr(x, "sharding", None) == sh for x, sh in zip(leaves(st), leaves(plan.shardings(st)))):
+            raise AssertionError("16a: a reduced leaf lost its sharding")
+    if held is not None:
+        with held_against_plain(torch, held):
+            again = mesh_mod.ici_reduce(dense, plan, placed)
+        if not _same(torch, again, red):
+            raise AssertionError("16a: the held reduce ended in another state")
+    t0 = time.perf_counter()
+    vec = mesh_gossip.sharded_digest_vector(state, plan)
+    out["digest_s"] = time.perf_counter() - t0
+    if not (vec == pt.state_digests(state, plan.P)).all():
+        raise AssertionError("16a: the stitched digest vector differs from state_digests")
+    t0 = time.perf_counter()
+    n_blobs = 0
+    for shard in range(plan.n_key):
+        for part, blob in mesh_gossip.shard_psnap_blobs("topk_rmv", state, 7, dense, plan, shard):
+            want = pt.encode_psnap_blob(7, part, serial.dumps_dense(
+                "topk_rmv_psnap", pt.restrict_psnap(dense, state, part, plan.P)))
+            if blob != want:
+                raise AssertionError(f"16a: shard {shard}'s psnap blob of partition {part} differs")
+            n_blobs += 1
+    out["psnap_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["checkpoint_bytes"] = save_mesh_checkpoint(os.path.join(tmp, "mesh"), "topk_rmv", state, dense, 4, plan)
+        out["checkpoint_s"] = time.perf_counter() - t0
+        save_partitioned_checkpoint(os.path.join(tmp, "whole"), "topk_rmv", state, dense, 4, partitions=plan.P)
+        names = sorted(os.listdir(os.path.join(tmp, "whole")))
+        if names != sorted(os.listdir(os.path.join(tmp, "mesh"))):
+            raise AssertionError("16a: the mesh checkpoint wrote other files")
+        for fn in names:
+            with open(os.path.join(tmp, "whole", fn), "rb") as f, open(os.path.join(tmp, "mesh", fn), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"16a: checkpoint file {fn} differs between the mesh and whole writers")
+    one = MeshPlan.build(partitions=plan.P)
+    if (one.n_dc, one.n_key) != (1, 1) or not _same(torch, mesh_mod.ici_reduce(dense, one, state), state):
+        raise AssertionError(f"16a: the plan over {one.describe()['devices']} real device(s) is not an identity")
+    if mesh_mod.install_from_env(dense, override=True) is not None:
+        raise AssertionError("16a: install_from_env armed the mesh on one device")
+    out.update(psnap_blobs=n_blobs, checkpoint_files=len(names), real_plan=one.describe())
+    return out
+
+
+def run_id_sharded(torch, dev: str, geo, *, held=None) -> dict:
+    """16b at width `geo` = (R, I, B, Br) on `dev`: IdShardedTopkRmv on a
+    (2, 4) mesh of logical devices of `dev` (I / 4 ids a shard) and the
+    unsharded engine, both fed phase 4's global-id batches for
+    MESH_ID_ROUNDS rounds. Gates: `observe` equals the unsharded observe
+    leaf for leaf; the tables equal the unsharded tables (vc the max and
+    lossy the or of the shard axis); `merge_replicas`' rows are the dc
+    block joins of the unsharded state; with `held`, round 0 applied again
+    with every K1c, K2 and K3 call held against its plain version ends in
+    the same state (launches not counted). Times on the host clock, synced."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.parallel.dist import make_mesh
+    from antidote_ccrdt_tpu_torch.parallel.sharded import make_id_sharded_topk_rmv
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+
+    r, ids, b, br = geo
+    on_card = torch.device(dev).type == "cuda"
+    wait = sync if on_card else (lambda: None)
+    mesh = make_mesh(MESH_DC, MESH_KEY, devices=[dev] * (MESH_DC * MESH_KEY))
+    eng = make_id_sharded_topk_rmv(mesh, ids, r, size=K, slots_per_id=M, n_replicas=r)
+    ref = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=K, slots_per_id=M, device=dev)
+    gen = TopkRmvEffectGen(Workload(r, ids, zipf_a=1.2, score_max=100_000, seed=7), device=dev)
+    batches = [gen.next_batch(b, br) for _ in range(MESH_ID_ROUNDS)]  # set-up
+    st, rs = eng.init(), ref.init(r, 1)
+    apply_ms, ref_ms, launches = [], [], {n: 0 for n in mesh_counts()}
+    gc.collect()
+    wait()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated() if on_card else 0
+    for k, ops in enumerate(batches):
+        before = mesh_counts()
+        t0 = time.perf_counter()
+        nxt = eng.apply_ops(st, ops)
+        wait()
+        apply_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {n: launches[n] + v for n, v in _since(before).items()}
+        if k == 0 and held is not None:
+            with held_against_plain(torch, held):
+                again = eng.apply_ops(st, ops)
+            if not _same(torch, again, nxt):
+                raise AssertionError("16b: the held round ended in another state")
+            del again
+        st = nxt
+        t0 = time.perf_counter()
+        rs = ref.apply_ops(rs, ops, collect_dominated=False)[0]
+        wait()
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    obs = eng.observe(st)
+    wait()
+    observe_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref_obs = ref.observe(rs)
+    wait()
+    ref_observe_ms = (time.perf_counter() - t0) * 1e3
+    if not _same(torch, obs, ref_obs):
+        raise AssertionError("16b: the id-sharded observe differs from the unsharded observe")
+
+    def tables(s, sharded=True):
+        """The leaves compared: vc and lossy of the sharded state taken
+        over its shard axis (max and or)."""
+        side = (s.vc.amax(1), s.lossy.any(1)) if sharded else (s.vc, s.lossy)
+        return (s.slot_score, s.slot_dc, s.slot_ts, s.rmv_vc) + side
+
+    if not _same(torch, tables(st), tables(rs, False)):
+        raise AssertionError("16b: the id-sharded tables differ from the unsharded tables")
+    before = mesh_counts()
+    t0 = time.perf_counter()
+    merged = eng.merge_replicas(st)
+    wait()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: launches[n] + v for n, v in _since(before).items()}
+    peak_gb = (torch.cuda.max_memory_allocated() - mem_base) / 1e9 if on_card else 0.0
+    if not _same(torch, tables(merged), tables(_dc_block_joins(ref, rs, MESH_DC), False)):
+        raise AssertionError("16b: a merged row is not the join of its dc block")
+    return dict(state=st, merged=merged, observed=obs, apply_ms=apply_ms, unsharded_apply_ms=ref_ms,
+                observe_ms=observe_ms, unsharded_observe_ms=ref_observe_ms, merge_replicas_ms=merge_ms,
+                launches=launches, peak_gb=peak_gb, valid_observed=int(obs.valid.sum()))
+
+
+def run_mesh_chaos(torch, dev: str, seed: int = MESH_CHAOS_SEED) -> dict:
+    """tests/test_mesh.py's ``run_mesh_chaos(seed)`` on the port on `dev`:
+    4 members on SimNet, each state placed on one (2, 4) plan over eight
+    logical devices of `dev`, an ICI reduce at every publish boundary,
+    per-shard anchors (``DeltaPublisher(mesh_plan=)``) and mesh-grouped
+    partial repairs (``PartialAntiEntropy(mesh_plan=)``), a partition,
+    a heal and a crash, then a fault-free tail until every survivor's
+    digest is the sequential reference's. Returns the digests, the
+    reference and the fleet's counters."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+    from antidote_ccrdt_tpu_torch.mesh import MeshPlan
+    from antidote_ccrdt_tpu_torch.mesh import reduce as mesh_reduce
+    from antidote_ccrdt_tpu_torch.net.sim import SimNet
+    from antidote_ccrdt_tpu_torch.net.transport import GossipNode
+    from antidote_ccrdt_tpu_torch.parallel.elastic import (DeltaPublisher, PartialAntiEntropy, my_replicas,
+                                                           sweep_deltas)
+
+    r, ids, b, br = MESH_CHAOS_GEO
+    steps, members, dt, timeout, P = 10, 4, 0.1, 0.35, MESH_PARTS
+    dense = registry.make_dense("topk_rmv", n_ids=ids, n_dcs=r, size=MESH_CHAOS_K, slots_per_id=MESH_CHAOS_M,
+                                device=dev)
+    gen = GossipOps(r, ids, b, br, dev, zipf=False)
+
+    def apply(state, step, owned):
+        return dense.apply_ops(state, gen.batch(step, owned), collect_dominated=False)[0]
+
+    def adopt(state, gained, upto):
+        for g in sorted(gained):
+            for step in range(upto):
+                state = apply(state, step, [g])
+        return state
+
+    def digest(state):
+        obs = dense.value(fold_rows(dense, state, range(r)))[0][0]
+        return sorted((int(i), int(sc)) for (i, sc) in obs)
+
+    ref = dense.init(r, 1)
+    for step in range(steps):
+        ref = apply(ref, step, range(r))
+    ref = digest(ref)
+    net = SimNet(seed=seed, latency=(0.001, 0.02), loss=0.03, dup=0.03)
+    plan = MeshPlan.build(n_dc=2, n_key=4, partitions=P, devices=[dev] * 8)
+    names = [f"m{i}" for i in range(members)]
+    nodes = {m: GossipNode(net.join(m)) for m in names}
+    states = {m: plan.place(dense.init(r, 1)) for m in names}
+    cursors = {m: {} for m in names}
+    pubs = {m: DeltaPublisher(nodes[m], dense, name="topk_rmv", full_every=4, keep=4, partitions=P,
+                              mesh_plan=plan) for m in names}
+    partials = {m: PartialAntiEntropy(nodes[m], partitions=P, max_tries=6, mesh_plan=plan) for m in names}
+    owned = {m: set() for m in names}
+    crashed = set()
+
+    def publish_and_sweep(m):
+        states[m] = mesh_reduce.try_ici_reduce(dense, plan, states[m], metrics=nodes[m].metrics)
+        pubs[m].publish(states[m])
+        states[m], _ = sweep_deltas(nodes[m], dense, states[m], cursors[m], partial=partials[m])
+
+    def own(m, upto):
+        node = nodes[m]
+        node.heartbeat()
+        now_owned = owned[m] | set(my_replicas(node, r, timeout))
+        gained = now_owned - owned[m]
+        if gained:
+            states[m] = adopt(states[m], gained, upto)
+        owned[m] = now_owned
+
+    for _ in range(3):
+        for m in names:
+            nodes[m].heartbeat()
+        net.advance(dt)
+    for step in range(steps):
+        if step == 3:
+            net.partition({"m0", "m1"}, {"m2", "m3"})
+        if step == 6:
+            net.heal()
+        if step == 7:
+            net.crash("m3")
+            crashed.add("m3")
+        for m in names:
+            if m in crashed:
+                continue
+            own(m, step)
+            states[m] = apply(states[m], step, sorted(owned[m]))
+            if step % 2 == 0:
+                publish_and_sweep(m)
+        net.advance(dt)
+    net.loss = net.dup = 0.0
+    live = [m for m in names if m not in crashed]
+    for _ in range(40):
+        for m in live:
+            own(m, steps)
+            publish_and_sweep(m)
+        net.advance(dt)
+        if all(digest(states[m]) == ref for m in live):
+            break
+    return dict(digests={m: digest(states[m]) for m in live}, ref=ref, counters=dict(net.metrics.counters),
+                states={m: states[m] for m in live})
+
+
+def run_sharded_small(torch, dev: str) -> dict:
+    """tests/test_parallel.py's sharded leaderboard (seed 0), topk (seed 0)
+    and vocab-sharded wordcount (seed 0) on a (1, 4, 2) mesh of logical
+    devices of `dev`, 3 rounds each and the reconciliation: the states and
+    reads, for comparison between devices."""
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import convert
+    from antidote_ccrdt_tpu_torch.models.leaderboard import LeaderboardOps
+    from antidote_ccrdt_tpu_torch.models.topk import TopkOps
+    from antidote_ccrdt_tpu_torch.models.wordcount import WordcountOps
+    from antidote_ccrdt_tpu_torch.parallel import sharded as sh
+
+    mesh = sh.make_mesh2(1, 4, 2, devices=[dev] * 8)
+    out = {}
+    rng = np.random.default_rng(0)
+    lb = sh.make_id_sharded_leaderboard(mesh, n_players_global=64, size=4)
+    st = lb.init()
+    for _ in range(3):
+        ones, zeros = np.ones((4, 32), bool), np.zeros((4, 32), np.int32)
+        cols = dict(add_key=zeros, add_id=rng.integers(0, 64, (4, 32)).astype(np.int32),
+                    add_score=rng.integers(1, 500, (4, 32)).astype(np.int32), add_valid=ones,
+                    ban_key=np.zeros((4, 6), np.int32), ban_id=rng.integers(0, 64, (4, 6)).astype(np.int32),
+                    ban_valid=np.ones((4, 6), bool))
+        st = lb.apply_ops(st, convert.from_numpy(LeaderboardOps, cols, dev))
+    st = lb.merge_replicas(st)
+    out["leaderboard"] = (st, lb.observe(st))
+    rng = np.random.default_rng(0)
+    tk = sh.make_id_sharded_topk(mesh, n_ids_global=64, size=4)
+    st = tk.init()
+    for _ in range(3):
+        cols = dict(key=np.zeros((4, 24), np.int32), id=rng.integers(0, 64, (4, 24)).astype(np.int32),
+                    score=rng.integers(1, 900, (4, 24)).astype(np.int32), valid=np.ones((4, 24), bool))
+        st = tk.apply_ops(st, convert.from_numpy(TopkOps, cols, dev))
+    st = tk.merge_replicas(st)
+    out["topk"] = (st, tk.observe(st))
+    rng = np.random.default_rng(0)
+    wc = sh.make_vocab_sharded_wordcount(mesh, n_buckets_global=64)
+    st = wc.init()
+    for _ in range(3):
+        tok = rng.integers(0, 64, (4, 32)).astype(np.int32)
+        tok[:, :3] = -1
+        tok[0, 3] = 64 + 5
+        st = wc.apply_ops(st, convert.from_numpy(WordcountOps, dict(key=np.zeros((4, 32), np.int32), token=tok), dev))
+    out["wordcount"] = (st, wc.global_counts(st))
+    return out
+
+
+def phase_mesh(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 16: the single-process mesh plane. (a) phase 4's engine on a
+    (2, 4) plan over eight logical devices of the card, the dc all-reduce
+    and the plane's artifacts (`run_mesh_reduce`); (b) IdShardedTopkRmv at
+    the main path's width against the unsharded engine (`run_id_sharded`);
+    (c) tests/test_mesh.py's chaos drill and tests/test_parallel.py's
+    sharded engines at their own shapes, equal on the CPU and the card.
+    Every K1c, K2 and K3 call of one reduce and one id-sharded round is
+    held against its plain version. Returns the launches of 16a's two
+    reduces and 16b's rounds and merge (the held runs' left out)."""
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+    on_card = torch.device(dev).type == "cuda"
+    kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
+
+    def held_calls(held):
+        return {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in kernel_of}
+
+    t_phase = time.perf_counter()
+    held_a = {}
+    a = run_mesh_reduce(torch, dev, (R, I, B, BR), held=held_a)
+    launches = a["launches"]
+    if on_card and (a["launches"]["sort_slots"] < MESH_KEY * MESH_DC or any(v["max_abs_err"] for v in held_a.values())
+                    or held_calls(held_a)["sort_slots"] != MESH_KEY * MESH_DC):
+        raise AssertionError(f"16a launched {a['launches']}, held {held_a}")
+    log("16 mesh", card=card, replicas=R, ids=I, rounds=MESH_ROUNDS, mesh=dict(dc=MESH_DC, key=MESH_KEY),
+        partitions=MESH_PARTS, reduce_ms=a["reduce_ms"], unsharded_merge_ms=a["merge_ms"],
+        digest_s=a["digest_s"], psnap_s=a["psnap_s"], psnap_blobs=a["psnap_blobs"], checkpoint_s=a["checkpoint_s"],
+        checkpoint_bytes=a["checkpoint_bytes"], checkpoint_files=a["checkpoint_files"], peak_mem_gb=a["peak_gb"],
+        reduce_counters=a["counters"], real_plan=a["real_plan"], launches=a["launches"], held_against_plain=held_a,
+        rows_are_dc_block_joins=True, observable_unchanged=True, idempotent=True, leaves_tagged=True,
+        digests_psnaps_checkpoint_equal=True, phase_s=time.perf_counter() - t_phase)
+    del a
+    gc.collect()
+
+    t_b = time.perf_counter()
+    held_b = {}
+    b = run_id_sharded(torch, dev, (R, I, B, BR), held=held_b)
+    blocks = MESH_DC * MESH_KEY
+    if on_card and (any(b["launches"][n] < blocks * MESH_ID_ROUNDS for n in kernel_of)
+                    or any(v["max_abs_err"] for v in held_b.values())
+                    or held_calls(held_b) != {n: blocks for n in kernel_of}):
+        raise AssertionError(f"16b launched {b['launches']}, held {held_b}")
+    log("16 id-sharded", card=card, replicas=R, ids=I, ids_per_shard=I // MESH_KEY, rounds=MESH_ID_ROUNDS,
+        apply_ms=b["apply_ms"], unsharded_apply_ms=b["unsharded_apply_ms"], observe_ms=b["observe_ms"],
+        unsharded_observe_ms=b["unsharded_observe_ms"], merge_replicas_ms=b["merge_replicas_ms"],
+        valid_observed=b["valid_observed"], peak_mem_gb=b["peak_gb"], launches=b["launches"],
+        held_against_plain=held_b, observe_equal=True, tables_equal=True, merged_rows_are_dc_block_joins=True,
+        phase_s=time.perf_counter() - t_b)
+    launches = {n: v + b["launches"][n] for n, v in launches.items()}
+    del b
+    gc.collect()
+
+    t_c = time.perf_counter()
+    chaos = {d: run_mesh_chaos(torch, d) for d in ("cpu", dev)}
+    for d, o in chaos.items():
+        c = o["counters"]
+        if any(dg != o["ref"] for dg in o["digests"].values()) or not o["ref"]:
+            raise AssertionError(f"16c: the mesh chaos drill on {d} missed the sequential reference")
+        if c.get("mesh.ici_reduces", 0) <= 0 or c.get("mesh.cross_slice_fetches", 0) <= 0 or c.get(
+                "net.psnap_wasted", 0) != 0:
+            raise AssertionError(f"16c: the mesh chaos drill's counters on {d}: {c}")
+    if chaos["cpu"]["digests"] != chaos[dev]["digests"] or chaos["cpu"]["counters"] != chaos[dev]["counters"] or not all(
+            _same(torch, chaos["cpu"]["states"][m], chaos[dev]["states"][m]) for m in chaos["cpu"]["states"]):
+        raise AssertionError("16c: the mesh chaos drill differs between the CPU and the card")
+    small = {d: run_sharded_small(torch, d) for d in ("cpu", dev)}
+    for name in small["cpu"]:
+        if not all(_same(torch, x, y) for x, y in zip(small["cpu"][name], small[dev][name])):
+            raise AssertionError(f"16c: the sharded {name} differs between the CPU and the card")
+    c = chaos["cpu"]["counters"]
+    log("16 reduced", card=card, chaos_geometry=dict(zip(("R", "I", "B", "Br"), MESH_CHAOS_GEO)),
+        chaos_seed=MESH_CHAOS_SEED, members=sorted(chaos["cpu"]["digests"]),
+        mesh_counters={k: v for k, v in c.items() if k.startswith("mesh.")},
+        psnap_wasted=c.get("net.psnap_wasted", 0), sharded_engines=sorted(small["cpu"]), equal_cpu_card=True,
+        reduced_s=time.perf_counter() - t_c, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -3745,6 +4239,7 @@ def main() -> int:
     fleet = phase_fleet(torch, card)
     paged = phase_overlap_pager(torch, card)
     bridge = phase_bridge(torch, card)
+    mesh = phase_mesh(torch, card)
     sources = {
         "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
@@ -3772,7 +4267,7 @@ def main() -> int:
     for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
                       ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
                       ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged),
-                      ("bridge (phase 15)", bridge)):
+                      ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

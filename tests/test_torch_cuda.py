@@ -924,3 +924,54 @@ def test_bridge_merge_all_broadcast_then_apply_on_card(cuda):
     assert seen["strides"] == [0] * 6
     assert all(torch.equal(x, y) for x, y in zip(seen["leaves"], seen["before"]))
     assert frames["cpu"] == frames[str(cuda)]
+
+
+# --- the single-process mesh plane -------------------------------------------
+
+MESH_SMALL = (4, 512, 128, 16)  # (R, I, B, Br): rows divide dc, ids divide key
+
+
+@pytest.mark.cuda
+def test_mesh_reduce_on_card_equals_cpu(cuda, monkeypatch):
+    """chip_smoke.py's 16a at a small width: the dc all-reduce of the
+    same divergent-rows state on a (2, 4) plan over eight logical devices
+    of the card is the CPU's bit for bit, and its joins launched K3."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "K", 8)
+    got = {d: chip_smoke.run_mesh_reduce(torch, d, MESH_SMALL, checks=False) for d in ("cpu", cuda)}
+    for key in ("state", "reduced"):
+        assert chip_smoke._same(torch, got["cpu"][key], got[cuda][key]), key
+    assert got[cuda]["launches"]["sort_slots"] >= 2 * chip_smoke.MESH_DC * chip_smoke.MESH_KEY
+    assert got[cuda]["reduced"].slot_score.sharding.mesh.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_mesh_id_sharded_apply_on_card_equals_cpu(cuda, monkeypatch):
+    """chip_smoke.py's 16b at a small width: IdShardedTopkRmv's rounds,
+    observe and merge_replicas on the card are the CPU's bit for bit (each
+    run holds them against the unsharded engine), and every block's apply
+    launched K1c, K2 and K3."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "K", 8)
+    got = {d: chip_smoke.run_id_sharded(torch, d, MESH_SMALL) for d in ("cpu", cuda)}
+    for key in ("state", "merged", "observed"):
+        assert chip_smoke._same(torch, got["cpu"][key], got[cuda][key]), key
+    blocks = chip_smoke.MESH_DC * chip_smoke.MESH_KEY * chip_smoke.MESH_ID_ROUNDS
+    assert all(got[cuda]["launches"][n] >= blocks for n in ("scatter_max_rows_copy", "delta_place", "sort_slots"))
+
+
+@pytest.mark.cuda
+def test_mesh_chaos_and_sharded_engines_on_card_equal_cpu(cuda):
+    """chip_smoke.py's 16c: tests/test_mesh.py's chaos drill and the
+    sharded leaderboard, topk and wordcount give the CPU's states,
+    digests and counters on the card."""
+    import chip_smoke
+
+    cpu, card = chip_smoke.run_mesh_chaos(torch, "cpu"), chip_smoke.run_mesh_chaos(torch, cuda)
+    assert cpu["digests"] == card["digests"] and cpu["counters"] == card["counters"]
+    assert all(d == cpu["ref"] for d in cpu["digests"].values())
+    small = {d: chip_smoke.run_sharded_small(torch, d) for d in ("cpu", cuda)}
+    for name in small["cpu"]:
+        assert all(chip_smoke._same(torch, x, y) for x, y in zip(small["cpu"][name], small[cuda][name])), name

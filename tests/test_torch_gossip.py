@@ -184,18 +184,6 @@ def test_partial_anti_entropy_repairs_like_jax(tmp_path):
     assert out["torch"][1]["partials"] == 1 and out["torch"][1]["fulls"] == 0
 
 
-@pytest.mark.parametrize("call", [
-    lambda node, dense, st: pel.DeltaPublisher(node, dense, mesh_plan=object()),
-    lambda node, dense, st: pel.PartialAntiEntropy(node, mesh_plan=object()),
-    lambda node, dense, st: node.publish_partitioned("topk_rmv", st, 0, dense, 4, plan=object()),
-])
-def test_planes_not_ported_raise(tmp_path, call):
-    drill = demo_drills("torch")["topk_rmv"]
-    dense = drill.make_engine()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        call(pel.GossipStore(str(tmp_path), "a"), dense, drill.init(dense))
-
-
 def test_sweeps_decode_onto_the_state_device(tmp_path):
     """A fetched snapshot and a fetched delta land on the device of the
     state they are decoded against (here the CPU, as a card state's land

@@ -37,6 +37,8 @@ NEW_MODULES = [
     "parallel.overlap", "core.pager",
     # the bridge server and client
     "bridge.server", "bridge.client",
+    # the single-process mesh plane
+    "parallel.dist", "parallel.sharded", "mesh", "mesh.plan", "mesh.reduce", "mesh.gossip",
 ]
 
 
@@ -94,6 +96,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         _Grid("average", {})
     with BridgeServer(device="cpu") as srv:
         assert srv.device.type == "cpu"
+    # A mesh is built over the cards unless the caller names its devices.
+    from antidote_ccrdt_tpu_torch.mesh import MeshPlan
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeshPlan.build()
+    assert MeshPlan.build(n_dc=2, n_key=1, devices=["cpu"] * 2).mesh.device.type == "cpu"
     # An explicit CPU device is the one way to the plain path.
     assert registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, device="cpu").device.type == "cpu"
 

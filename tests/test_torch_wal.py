@@ -131,12 +131,6 @@ def test_each_package_recovers_the_others_wal(tmp_path, monkeypatch, drill_cls, 
     assert leaf_bytes(rec) == leaf_bytes(live)
 
 
-def test_mesh_plan_waits_for_the_mesh_port(tmp_path):
-    drill = TopkRmvDrill()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pwal.ElasticWal(str(tmp_path), "w0", drill.make_engine(), "topk_rmv", mesh_plan=object())
-
-
 def test_wal_env_knobs_read_like_jax(tmp_path, monkeypatch):
     drill = TopkRmvDrill()
     monkeypatch.setenv("CCRDT_WAL_DURABILITY", "ASYNC")

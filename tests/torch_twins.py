@@ -519,3 +519,27 @@ def port_run_chaos(*args, **kwargs):
             "from torch_twins import DEMO_DRILLS as DRILLS, R, STEPS, reference_digest")],
             helpers=["run_chaos"])["run_chaos"])
     return _PORT_CHAOS[0](*args, **kwargs)
+
+
+class torch_mesh_jax(torch_jax):
+    """The ``jax`` names ``tests/test_mesh.py`` calls, over the port (for
+    `port_copy`): the conftest's 8 virtual CPU devices as 8 logical CPU
+    devices, ``jax.tree.map`` and a row write in place of ``.at[].set``."""
+
+    @staticmethod
+    def devices():
+        return [torch.device("cpu")] * 8
+
+    class tree:
+        @staticmethod
+        def map(fn, tree, *rest):
+            from antidote_ccrdt_tpu_torch.utils.tree import tree_map
+
+            return tree_map(fn, tree, *rest)
+
+    @staticmethod
+    def set_rows(full, r, rows):
+        """``full.at[r : r + len(rows)].set(rows)`` as a new tensor."""
+        out = full.clone()
+        out[r : r + rows.shape[0]] = rows
+        return out
