@@ -187,6 +187,22 @@ class NamedSharding:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
 
 
+class ShapeDtypeStruct:
+    """``jax.ShapeDtypeStruct``: an abstract leaf (shape, dtype and an
+    optional sharding) for a restore to fill. Not a tuple, so that the
+    port's tree walks treat it as a leaf."""
+
+    __slots__ = ("shape", "dtype", "sharding")
+
+    def __init__(self, shape: Sequence[int], dtype: torch.dtype, sharding: Optional[NamedSharding] = None):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+
+    def __repr__(self) -> str:
+        return f"ShapeDtypeStruct(shape={tuple(self.shape)}, dtype={self.dtype}, sharding={self.sharding!r})"
+
+
 def device_put(leaf: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """`leaf` on the mesh's device, tagged with `sharding`: a new tensor
     object (an alias when the leaf is there already); `leaf` itself is

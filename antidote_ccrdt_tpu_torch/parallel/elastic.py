@@ -4,10 +4,10 @@ SURVEY.md §5 marks "failure detection / elastic recovery" absent in the
 reference (delegated to the Antidote host). This module is that tier,
 built the CRDT way rather than the collective way:
 
-* `parallel.multihost` (the JAX package's; not ported yet, ROADMAP
-  A10) and `parallel.dist` are the FAST path — collectives. Collectives
-  need a fixed, fully-alive world: a dead peer hangs the program, and a
-  process group cannot shrink without a restart.
+* `parallel.multihost` (over ``torch.distributed``) and `parallel.dist`
+  are the FAST path — collectives. Collectives need a fixed, fully-alive
+  world: a dead peer hangs the program, and a process group cannot
+  shrink without a restart.
 * This module is the FAILURE-TOLERANT path: members exchange whole
   lattice states through a shared store (filesystem here; the transport
   is a trivial read/write interface, so object stores or RPC slot in).

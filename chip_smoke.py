@@ -184,8 +184,28 @@ Phases, each printing one line (any failure exits non-zero):
    ``tests/test_mesh.py``'s mesh chaos drill (seed 7) and
    ``tests/test_parallel.py``'s sharded leaderboard, topk and wordcount at
    their own shapes, equal on the CPU and the card;
-17. the kernels line (launches on each path that drives a kernel, phases
-   9-16 included), then the ok line.
+17. multihost: (a) 2 worker processes of
+   ``antidote_ccrdt_tpu_torch/scripts/multihost_demo.py`` on the card
+   (gloo, 16 logical devices each, R = 32), each applying its rows of one
+   round of phase 4's stream and joining them with
+   ``parallel.multihost.hierarchical_reconcile`` (the dc reduce inside
+   the process, the dcn exchange of whole 282 MB blocks through pinned
+   host memory), then saving the global state collectively with DCP
+   (``harness/orbax_ckpt.py``); this process restores the checkpoint
+   whole onto another layout, and it must equal PR 13's single-process
+   ``parallel.sharded.hierarchical_all_reduce`` over (2, 16) logical
+   devices leaf for leaf, its observable the sequential fold's; that
+   reference's apply of one process's rows and its reduce held against
+   the plain kernels; (b) ``tests/test_multihost.py``'s world (2 x 4, 256
+   ids) on the CPU, on the card and as one process under nccl, equal; (c)
+   two ``OrbaxGossip`` sites at the main path's width on (4, 1) and (2,
+   1) meshes of the card: one exchange converges and keeps each site's
+   layout, a second publish is seen, a cursor sweep of an unchanged peer
+   merges nothing; every spawned world killed after a timeout; each
+   17a worker and each card worker of 17b must launch K1c, K2 and K3;
+18. the kernels line (launches on each path that drives a kernel, phases
+   9-17 included; phase 17's are its workers' and its sites', not the
+   reference's), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -342,6 +362,19 @@ MESH_DC, MESH_KEY, MESH_PARTS, MESH_ROUNDS, MESH_ID_ROUNDS = 2, 4, 8, 3, 4
 # 3 healed at 6, m3 crashed at 7, 10 steps, a tail of at most 40 rounds),
 # and tests/test_parallel.py's sharded leaderboard, topk and wordcount.
 MESH_CHAOS_GEO, MESH_CHAOS_K, MESH_CHAOS_M, MESH_CHAOS_SEED = (4, 64, 32, 8), 8, 2, 7
+# Phase 17, the multi-process plane. 17a: MULTIHOST_PROCS workers of
+# antidote_ccrdt_tpu_torch/scripts/multihost_demo.py on the card (gloo),
+# MULTIHOST_LOCAL logical devices each, so R = 32 replicas; one round of
+# phase 4's stream, reconciled and saved with DCP. 17b: the JAX test's
+# world (tests/test_multihost.py: 2 x 4 devices, 256 ids, 8 DCs, K = 8,
+# M = 2, 64 adds a replica) on the CPU, on the card and as one process
+# under nccl. 17c: two OrbaxGossip sites at the main path's width, their
+# states on (dc, key) meshes of SITE_DCS[i] x 1 logical devices of the
+# card. Every world is killed after MULTIHOST_TIMEOUT_S.
+MULTIHOST_PROCS, MULTIHOST_LOCAL, MULTIHOST_TIMEOUT_S = 2, 16, 300.0
+SITE_DCS = (4, 2)
+# The environment of the spawned workers (None: this process's).
+WORKER_ENV = None
 
 
 # Phase 4's merge rates, read again beside phase 15's wire rates.
@@ -3745,17 +3778,12 @@ def phase_bridge(torch, card: str, dev: str = "cuda") -> dict:
             "sort_slots_block": total["sort_slots_block"], "sort_slots_global": total["sort_slots_global"]}
 
 
-def mesh_counts():
-    """The launch counters of the kernels the mesh plane drives."""
-    from antidote_ccrdt_tpu_torch.ops import kernels
-    from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
-
-    return {"scatter_max_rows_copy": kernels.scatter_max_rows_copy.launches, "delta_place": delta_place.launches,
-            "sort_slots": kernels.sort_slots.launches}
-
-
 def _since(before: dict) -> dict:
-    now = mesh_counts()
+    """The launches of the mesh and multi-process planes' kernels since
+    `before` (a `launch_counts()`)."""
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import launch_counts
+
+    now = launch_counts()
     return {n: now[n] - before[n] for n in now}
 
 
@@ -3802,6 +3830,7 @@ def run_mesh_reduce(torch, dev: str, geo, *, held=None, checks: bool = True) -> 
     from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
     from antidote_ccrdt_tpu_torch.mesh import MeshPlan
     from antidote_ccrdt_tpu_torch.mesh import gossip as mesh_gossip
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import launch_counts
     from antidote_ccrdt_tpu_torch.utils.benchtime import sync
     from antidote_ccrdt_tpu_torch.utils.metrics import Metrics
     from antidote_ccrdt_tpu_torch.utils.tree import leaves, tree_map
@@ -3822,7 +3851,7 @@ def run_mesh_reduce(torch, dev: str, geo, *, held=None, checks: bool = True) -> 
         torch.cuda.reset_peak_memory_stats()
     mem_base = torch.cuda.memory_allocated() if on_card else 0
     m = Metrics()
-    before = mesh_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     red = mesh_mod.ici_reduce(dense, plan, placed, metrics=m)
     wait()
@@ -3911,6 +3940,7 @@ def run_id_sharded(torch, dev: str, geo, *, held=None) -> dict:
     from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
     from antidote_ccrdt_tpu_torch.parallel.dist import make_mesh
     from antidote_ccrdt_tpu_torch.parallel.sharded import make_id_sharded_topk_rmv
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import launch_counts
     from antidote_ccrdt_tpu_torch.utils.benchtime import sync
 
     r, ids, b, br = geo
@@ -3922,14 +3952,14 @@ def run_id_sharded(torch, dev: str, geo, *, held=None) -> dict:
     gen = TopkRmvEffectGen(Workload(r, ids, zipf_a=1.2, score_max=100_000, seed=7), device=dev)
     batches = [gen.next_batch(b, br) for _ in range(MESH_ID_ROUNDS)]  # set-up
     st, rs = eng.init(), ref.init(r, 1)
-    apply_ms, ref_ms, launches = [], [], {n: 0 for n in mesh_counts()}
+    apply_ms, ref_ms, launches = [], [], {n: 0 for n in launch_counts()}
     gc.collect()
     wait()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     mem_base = torch.cuda.memory_allocated() if on_card else 0
     for k, ops in enumerate(batches):
-        before = mesh_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         nxt = eng.apply_ops(st, ops)
         wait()
@@ -3965,7 +3995,7 @@ def run_id_sharded(torch, dev: str, geo, *, held=None) -> dict:
 
     if not _same(torch, tables(st), tables(rs, False)):
         raise AssertionError("16b: the id-sharded tables differ from the unsharded tables")
-    before = mesh_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     merged = eng.merge_replicas(st)
     wait()
@@ -4205,6 +4235,303 @@ def phase_mesh(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+# Every kernel line: its source and the TPU kernel it replaces.
+SOURCES = {
+    "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
+                         "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
+    "scatter_max_rows_copy": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
+                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:332"),
+    "delta_place": ("antidote_ccrdt_tpu_torch/csrc/delta_place.cu",
+                    "antidote_ccrdt_tpu/ops/delta_place.py:136"),
+    "sort_slots": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                   "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+    "sort_slots_9_16": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                        "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+    "sort_slots_wide": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                        "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+    "sort_slots_block": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                         "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+    "sort_slots_global": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
+                          "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
+}
+
+
+def run_multihost_world(dev: str, nproc: int, local: int, shape: str, tmp: str, tag: str, *,
+                        backend: str = "gloo", ckpt: bool = False):
+    """A world of `nproc` multihost_demo workers on `dev` (each `local`
+    logical devices, `shape`), killed after MULTIHOST_TIMEOUT_S: every
+    worker's report and, for the small shape, its reconciled block. Fails
+    unless every worker exits 0 and prints MULTIHOST-OK."""
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import run_world
+
+    def args(pid):
+        return (["--device", dev, "--backend", backend, "--local", str(local), "--shape", shape,
+                 "--report", os.path.join(tmp, f"{tag}-w{pid}.json")]
+                + (["--ckpt", os.path.join(tmp, f"{tag}-ckpt")] if ckpt else []))
+
+    got = run_world(nproc, args, timeout_s=MULTIHOST_TIMEOUT_S, env=WORKER_ENV)
+    reports, blocks = [], []
+    for pid, (rc, out) in enumerate(got):
+        if rc != 0 or f"MULTIHOST-OK {pid}" not in out:
+            raise AssertionError(f"17: worker {pid} of world {tag} exited {rc}:\n{out[-6000:]}")
+        path = os.path.join(tmp, f"{tag}-w{pid}.json")
+        with open(path) as f:
+            reports.append(json.load(f))
+        blocks.append(dict(np.load(path + ".npz")) if shape == "small" else None)
+    return reports, blocks
+
+
+def mesh2_reduce(dense, state, mesh):
+    """PR 13's single-process path: ``parallel.sharded
+    .hierarchical_all_reduce`` of `state`'s replica rows laid out over
+    `mesh`'s (dcn, dc) axes, one replica a logical device."""
+    from antidote_ccrdt_tpu_torch.parallel import dist, sharded
+    from antidote_ccrdt_tpu_torch.utils.tree import tree_map
+
+    n_dcn, n_dc = mesh.shape["dcn"], mesh.shape["dc"]
+
+    def merge(x, y):  # blocks [1, 1, NK, ...]: one replica row each
+        out = dense.merge(tree_map(lambda a: a[0], x), tree_map(lambda a: a[0], y))
+        return tree_map(lambda a: a.unsqueeze(0), out)
+
+    grid = tree_map(lambda a: a.view((n_dcn, n_dc) + tuple(a.shape[1:])), state)
+    spec = tree_map(lambda _a: dist.P("dcn", "dc"), grid)
+    out = dist.shard_map(lambda g: sharded.hierarchical_all_reduce(g, merge, mesh), mesh, (spec,), spec)(grid)
+    return tree_map(lambda a: a.reshape((n_dcn * n_dc,) + tuple(a.shape[2:])), out)
+
+
+def _rows_only(ops, rows):
+    """`ops` with every replica outside `rows` padded out (no adds, no
+    removals)."""
+    from antidote_ccrdt_tpu_torch.models.topk_rmv_dense import TopkRmvOps
+
+    keep = ops.add_ts.new_zeros(ops.add_ts.shape[0], dtype=bool)
+    keep[list(rows)] = True
+    return TopkRmvOps(ops.add_key, ops.add_id, ops.add_score, ops.add_dc, ops.add_ts * keep[:, None],
+                      ops.rmv_key, ops.rmv_id.where(keep[:, None], -1), ops.rmv_vc)
+
+
+def run_sites(torch, dev: str, root: str) -> dict:
+    """17c: tests/test_orbax_gossip.py's two sites at the main path's
+    width on `dev`: each state on a (SITE_DCS[i], 1) mesh of logical
+    devices, site A applying phase 4's round for replicas [0, R/2), site B
+    for [R/2, R); both publish (DCP) and sweep each other; then A applies a
+    second round and publishes it, B sweeps it with cursors, and again with
+    nothing new. Gates: one merge a sweep, equal values after each
+    exchange, each state tagged with its own site's sharding, the cursor
+    sweep skipping the unchanged peer. Times on the host clock, synced."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.harness.orbax_ckpt import dir_bytes
+    from antidote_ccrdt_tpu_torch.parallel import dist
+    from antidote_ccrdt_tpu_torch.parallel.orbax_gossip import OrbaxGossip
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves, tree_map
+
+    wait = sync if torch.device(dev).type == "cuda" else (lambda: None)
+    dense = registry.make_dense("topk_rmv", n_ids=I, n_dcs=R, size=K, slots_per_id=M, device=dev)
+    gen = TopkRmvEffectGen(Workload(R, I, zipf_a=1.2, score_max=100_000, seed=7), device=dev)
+    first, second = gen.next_batch(B, BR), gen.next_batch(B, BR)  # set-up
+    shardings = [dist.NamedSharding(dist.make_mesh(n, 1, devices=[dev] * n), dist.P("dc", "key")) for n in SITE_DCS]
+
+    def place(state, sh):
+        return tree_map(lambda a: dist.device_put(a, sh), state)
+
+    def tagged(state, sh):
+        return all(getattr(a, "sharding", None) == sh for a in leaves(state))
+
+    def timed(fn, *a):
+        wait()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        wait()
+        return out, time.perf_counter() - t0
+
+    half = R // 2
+    sa = place(dense.apply_ops(dense.init(R, 1), _rows_only(first, range(half)), collect_dominated=False)[0],
+               shardings[0])
+    sb = place(dense.apply_ops(dense.init(R, 1), _rows_only(first, range(half, R)), collect_dominated=False)[0],
+               shardings[1])
+    out = {}
+    with OrbaxGossip(root, "site-a") as ga, OrbaxGossip(root, "site-b") as gb:
+        _, out["publish_a_s"] = timed(ga.publish, sa, 1)
+        _, out["publish_b_s"] = timed(gb.publish, sb, 1)
+        out["publish_bytes"] = dir_bytes(os.path.join(root, "ckpt-site-a", "1"))
+        if set(ga.snapshot_members()) != {"site-a", "site-b"}:
+            raise AssertionError(f"17c: members {ga.snapshot_members()}")
+        (sa2, n_a), out["sweep_a_s"] = timed(ga.sweep, dense, sa)
+        (sb2, n_b), out["sweep_b_s"] = timed(gb.sweep, dense, sb)
+        if (n_a, n_b) != (1, 1) or dense.value(sa2) != dense.value(sb2):
+            raise AssertionError(f"17c: the first exchange merged {n_a}, {n_b} or left the sites apart")
+        if not (tagged(sa2, shardings[0]) and tagged(sb2, shardings[1])):
+            raise AssertionError("17c: a swept state left its site's layout")
+        sa3 = place(dense.apply_ops(sa2, _rows_only(second, range(half)), collect_dominated=False)[0], shardings[0])
+        _, out["publish_a2_s"] = timed(ga.publish, sa3, 2)
+        cursors: dict = {}
+        (sb3, n1), out["sweep_b2_s"] = timed(gb.sweep, dense, sb2, cursors)
+        if n1 != 1 or dense.value(sb3) != dense.value(sa3) or cursors != {"site-a": 2}:
+            raise AssertionError(f"17c: the second publish was not seen ({n1}, {cursors})")
+        (sb4, n2), out["cursor_sweep_s"] = timed(gb.sweep, dense, sb3, cursors)
+        if n2 != 0 or not _same(torch, sb4, sb3):
+            raise AssertionError("17c: a cursor sweep of an unchanged peer merged")
+        out["steps_a"] = ga._mgr.all_steps()
+    out["valid_observed"] = sum(len(v) for row in dense.value(sb3) for v in row)
+    return out
+
+
+def phase_multihost(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 17: the multi-process plane. (a) MULTIHOST_PROCS workers on
+    the card reconcile one round of phase 4's stream and save it with DCP;
+    the checkpoint, restored whole onto another layout, must equal PR 13's
+    single-process hierarchical reduce over (MULTIHOST_PROCS,
+    MULTIHOST_LOCAL) logical devices leaf for leaf, and its observable the
+    sequential fold's; (b) the JAX test's world on the CPU, on the card and
+    as one nccl process, equal; (c) `run_sites`. The reference's apply and
+    reduce run again with every K1c, K2 and K3 call held against its plain
+    version. Returns the path's launches for every kernel line: the
+    workers' (17a and 17b's card worlds) and 17c's sites'; the reference's
+    and the held runs' are left out. Each 17a worker must launch K1c, K2
+    and K3."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+    from antidote_ccrdt_tpu_torch.harness.opgen import TopkRmvEffectGen, Workload
+    from antidote_ccrdt_tpu_torch.harness.orbax_ckpt import DenseCheckpointManager
+    from antidote_ccrdt_tpu_torch.parallel import dist
+    from antidote_ccrdt_tpu_torch.parallel.sharded import make_mesh2
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import (STREAM_SCORE_MAX, STREAM_SEED, STREAM_ZIPF,
+                                                                 launch_counts)
+    from antidote_ccrdt_tpu_torch.utils.benchtime import sync
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves, tree_map
+
+    on_card = torch.device(dev).type == "cuda"
+    wait = sync if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()  # the workers share the card
+    r, local = MULTIHOST_PROCS * MULTIHOST_LOCAL, MULTIHOST_LOCAL
+    launches = {n: 0 for n in SOURCES}
+
+    def add(got):
+        for n, v in got.items():
+            launches[n] += v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 17a: the world at the main path's width.
+        t0 = time.perf_counter()
+        reports, _ = run_multihost_world(dev, MULTIHOST_PROCS, local, f"{I},{B},{BR},{M},{K}", tmp, "a", ckpt=True)
+        world_s = time.perf_counter() - t0
+        for rep in reports:
+            add(rep["launches"])
+        idle = [(rep["pid"], n) for rep in reports for n, v in rep["launches"].items() if v < 1]
+        if on_card and idle:
+            raise AssertionError(f"17a: a worker launched no kernel of (pid, kernel) {idle}")
+        dense = registry.make_dense("topk_rmv", n_ids=I, n_dcs=r, size=K, slots_per_id=M, device=dev)
+        workload = Workload(r, I, zipf_a=STREAM_ZIPF, score_max=STREAM_SCORE_MAX, seed=STREAM_SEED)
+        ops = TopkRmvEffectGen(workload, device=dev).next_batch(B, BR)
+        with dist.logical_devices([dev] * r):
+            mesh = make_mesh2(MULTIHOST_PROCS, local)
+        before = launch_counts()
+        wait()
+        t0 = time.perf_counter()
+        applied = dense.apply_ops(dense.init(r, 1), ops, collect_dominated=False)[0]
+        wait()
+        ref_apply_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = mesh2_reduce(dense, applied, mesh)
+        wait()
+        ref_reduce_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        one_merge = dense.merge(tree_map(lambda a: a[:local], applied), tree_map(lambda a: a[local:], applied))
+        wait()
+        merge_ms = (time.perf_counter() - t0) * 1e3
+        del one_merge
+        ref_launches = _since(before)  # another path's: not the phase's count
+        other = dist.NamedSharding(dist.make_mesh(SITE_DCS[0], 1, devices=[dev] * SITE_DCS[0]), dist.P("dc", "key"))
+        like = tree_map(lambda a: dist.ShapeDtypeStruct(a.shape, a.dtype, sharding=other), applied)
+        t0 = time.perf_counter()
+        with DenseCheckpointManager(os.path.join(tmp, "a-ckpt")) as mgr:
+            restored = mgr.restore(like)
+        wait()
+        restore_s = time.perf_counter() - t0
+        if not _same(torch, restored, ref):
+            raise AssertionError("17a: the world's checkpoint differs from the single-process hierarchical reduce")
+        if not all(getattr(a, "sharding", None) == other for a in leaves(restored)):
+            raise AssertionError("17a: a restored leaf is not in the layout asked for")
+        fold_obs = dense.value(fold_rows(dense, applied, range(r)))[0][0]
+        if dense.value(tree_map(lambda a: a[:1], restored))[0][0] != fold_obs or not fold_obs:
+            raise AssertionError("17a: the reconciled observable differs from the sequential fold's")
+        held = {}
+        with held_against_plain(torch, held):
+            again = dense.apply_ops(dense.init(local, 1), tree_map(lambda a: a[:local], ops), collect_dominated=False)[0]
+            if not _same(torch, again, tree_map(lambda a: a[:local], applied)):
+                raise AssertionError("17a: the held apply of process 0's rows ended in another state")
+            if not _same(torch, mesh2_reduce(dense, applied, mesh), ref):
+                raise AssertionError("17a: the held reduce ended in another state")
+        del again, restored, ref
+        if {k.split()[0] for k in held} != {"K1c", "K2", "K3"} or any(v["max_abs_err"] for v in held.values()):
+            raise AssertionError(f"17a: the held calls were not K1c, K2 and K3, each equal to its plain version: {held}")
+        keys = ("apply_ms", "dc_ms", "dcn_exchange_ms", "dcn_bytes", "dcn_ms", "reconcile_ms", "save_s",
+                "save_bytes", "peak_gb", "launches")
+        log("17 multihost", card=card, workers=MULTIHOST_PROCS, backend="gloo", local_devices=local, replicas=r,
+            ids=I, adds=B, removals=BR, slots=M, k=K, world_s=world_s,
+            per_worker=[{k: rep[k] for k in keys} for rep in reports], reference_apply_ms=ref_apply_ms,
+            reference_hierarchical_reduce_ms=ref_reduce_ms, unsharded_merge_of_halves_ms=merge_ms,
+            reference_launches=ref_launches,
+            parent_restore_s=restore_s, held_against_plain=held, restored_equals_single_process=True,
+            observable_equals_fold=True, valid_observed=len(fold_obs))
+        del applied, ops, dense
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # 17b: the JAX test's world on the CPU, on the card, and one nccl process.
+        t_b = time.perf_counter()
+        worlds = {"cpu": ("cpu", 2, 4, "gloo")}
+        worlds.update({"card": (dev, 2, 4, "gloo"), "nccl": (dev, 1, 8, "nccl")} if on_card else
+                      {"one": ("cpu", 1, 8, "gloo")})
+        with ThreadPoolExecutor(len(worlds)) as pool:
+            futs = {name: pool.submit(run_multihost_world, d, n, loc, "small", tmp, f"b-{name}", backend=be)
+                    for name, (d, n, loc, be) in worlds.items()}
+            small = {name: f.result() for name, f in futs.items()}
+        whole = {name: {p: np.concatenate([blk[p] for blk in blocks]) for p in blocks[0]}
+                 for name, (_reps, blocks) in small.items()}
+        for name in worlds:
+            if name != "cpu" and not all((whole[name][p] == whole["cpu"][p]).all() and
+                                         whole[name][p].dtype == whole["cpu"][p].dtype for p in whole["cpu"]):
+                raise AssertionError(f"17b: the {name} world differs from the CPU world")
+        for name, (reps, _blocks) in small.items():
+            if worlds[name][0] != "cpu":
+                for rep in reps:
+                    add(rep["launches"])
+                    if any(v < 1 for v in rep["launches"].values()):
+                        raise AssertionError(f"17b: worker {rep['pid']} of the {name} world launched {rep['launches']}")
+        log("17 reduced", card=card, worlds={n: dict(device=d, processes=k, local_devices=loc, backend=be)
+                                             for n, (d, k, loc, be) in worlds.items()},
+            reconcile_ms={n: [rep["reconcile_ms"] for rep in reps] for n, (reps, _b) in small.items()},
+            equal_across_worlds=True, reduced_s=time.perf_counter() - t_b)
+
+        # 17c: cross-site gossip at the main path's width.
+        t_c = time.perf_counter()
+        before = launch_counts()
+        sites = run_sites(torch, dev, os.path.join(tmp, "sites"))
+        got = _since(before)
+        add(got)
+        if on_card and any(v < 1 for v in got.values()):
+            raise AssertionError(f"17c launched {got}")
+        log("17 site gossip", card=card, replicas=R, ids=I, site_dcs=list(SITE_DCS), **sites, launches=got,
+            converged=True, second_publish_seen=True, cursor_skipped=True, sites_s=time.perf_counter() - t_c,
+            phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -4240,40 +4567,24 @@ def main() -> int:
     paged = phase_overlap_pager(torch, card)
     bridge = phase_bridge(torch, card)
     mesh = phase_mesh(torch, card)
-    sources = {
-        "scatter_max_rows": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
-                             "antidote_ccrdt_tpu/ops/pallas_kernels.py:254"),
-        "scatter_max_rows_copy": ("antidote_ccrdt_tpu_torch/csrc/scatter_max_rows.cu",
-                                  "antidote_ccrdt_tpu/ops/pallas_kernels.py:332"),
-        "delta_place": ("antidote_ccrdt_tpu_torch/csrc/delta_place.cu",
-                        "antidote_ccrdt_tpu/ops/delta_place.py:136"),
-        "sort_slots": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
-                       "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
-        "sort_slots_9_16": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
-                            "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
-        "sort_slots_wide": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
-                            "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
-        "sort_slots_block": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
-                             "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
-        "sort_slots_global": ("antidote_ccrdt_tpu_torch/csrc/sort_slots.cu",
-                              "antidote_ccrdt_tpu/ops/pallas_kernels.py:150"),
-    }
+    multihost = phase_multihost(torch, card)
     # `launches` is the count of the path that drives the kernel first
     # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
     # path's own count, each read from 0, is in `launches_by_path`.
     first_path = {"sort_slots_9_16": "batch_merge (phase 7)", "sort_slots_wide": "batch_merge (phase 7)",
                   "sort_slots_block": "wide rows (phase 8)", "sort_slots_global": "wide rows (phase 8)"}
-    by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in sources}
+    by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in SOURCES}
     for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
                       ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
                       ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged),
-                      ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh)):
+                      ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh),
+                      ("multihost (phase 17)", multihost)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
              launches_by_path=by_path[name], **rows[name])
-        for name, (src, rep) in sources.items()
+        for name, (src, rep) in SOURCES.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

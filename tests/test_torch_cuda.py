@@ -975,3 +975,64 @@ def test_mesh_chaos_and_sharded_engines_on_card_equal_cpu(cuda):
     small = {d: chip_smoke.run_sharded_small(torch, d) for d in ("cpu", cuda)}
     for name in small["cpu"]:
         assert all(chip_smoke._same(torch, x, y) for x, y in zip(small["cpu"][name], small[cuda][name])), name
+
+
+def _multihost_world(tmp, device, nproc, local, backend):
+    """A world of the port's multihost workers at the JAX test's shapes:
+    the reconciled global state, each process's block in turn."""
+    import os
+
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import run_world
+
+    tag = f"{device}-{backend}-{nproc}"
+    got = run_world(nproc, lambda pid: ["--device", device, "--backend", backend, "--local", str(local),
+                                        "--report", os.path.join(str(tmp), f"{tag}-{pid}.json")], timeout_s=300)
+    for pid, (rc, out) in enumerate(got):
+        assert rc == 0 and f"MULTIHOST-OK {pid}" in out, out
+    blocks = [dict(np.load(os.path.join(str(tmp), f"{tag}-{pid}.json.npz"))) for pid in range(nproc)]
+    return {p: np.concatenate([b[p] for b in blocks]) for p in blocks[0]}
+
+
+@pytest.mark.cuda
+def test_multihost_gloo_world_on_card_equals_cpu(cuda, tmp_path):
+    """2 processes x 4 logical devices of the card over gloo (card blocks
+    staged through pinned host memory) reconcile to the CPU world's state."""
+    card, cpu = _multihost_world(tmp_path, "cuda", 2, 4, "gloo"), _multihost_world(tmp_path, "cpu", 2, 4, "gloo")
+    for p in cpu:
+        assert card[p].dtype == cpu[p].dtype and np.array_equal(card[p], cpu[p]), p
+
+
+@pytest.mark.cuda
+def test_multihost_nccl_world_of_one_process_on_card_equals_cpu(cuda, tmp_path):
+    """One process of 8 logical devices under nccl (two ranks cannot share
+    one card under NCCL): the same state as the CPU's 2 x 4 world."""
+    card, cpu = _multihost_world(tmp_path, "cuda", 1, 8, "nccl"), _multihost_world(tmp_path, "cpu", 2, 4, "gloo")
+    for p in cpu:
+        assert card[p].dtype == cpu[p].dtype and np.array_equal(card[p], cpu[p]), p
+
+
+@pytest.mark.cuda
+def test_multihost_dcp_round_trip_of_a_card_state(cuda, tmp_path):
+    """A card state (bool masks included) saved with DCP, waited and async,
+    restores onto the card, onto a mesh layout of the card and onto the
+    CPU, bit for bit."""
+    from antidote_ccrdt_tpu_torch.harness.orbax_ckpt import DenseCheckpointManager
+    from antidote_ccrdt_tpu_torch.parallel import dist
+    from antidote_ccrdt_tpu_torch.utils.tree import leaves, tree_map
+
+    dense = registry.make_dense("topk_rmv", n_ids=4_096, n_dcs=4, size=8, slots_per_id=2, device=cuda)
+    gen = TopkRmvEffectGen(Workload(4, 4_096, zipf_a=1.2, score_max=1_000, seed=3), device=cuda)
+    state = dense.apply_ops(dense.init(4, 1), gen.next_batch(512, 64), collect_dominated=False)[0]
+    assert state.lossy.dtype == torch.bool and bool(state.lossy.any())  # a bool leaf, set
+    sh = dist.NamedSharding(dist.make_mesh(2, 1, devices=[cuda] * 2), dist.P("dc", "key"))
+    with DenseCheckpointManager(str(tmp_path / "ckpt"), max_to_keep=2) as mgr:
+        mgr.save(1, state)
+        mgr.save(2, tree_map(lambda a: dist.device_put(a, sh), state), wait=False)
+        assert mgr.all_steps() == [1, 2]
+        on_card = mgr.restore(tree_map(torch.zeros_like, state), step=1)
+        placed = mgr.restore(tree_map(lambda a: dist.ShapeDtypeStruct(a.shape, a.dtype, sharding=sh), state))
+        on_cpu = mgr.restore(tree_map(lambda a: torch.zeros_like(a, device="cpu"), state))
+    for got in (on_card, placed, on_cpu):
+        assert all(g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu()) for g, w in zip(leaves(got), leaves(state)))
+    assert all(a.is_cuda for a in leaves(on_card)) and not any(a.is_cuda for a in leaves(on_cpu))
+    assert all(a.is_cuda and a.sharding == sh for a in leaves(placed))

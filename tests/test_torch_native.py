@@ -207,11 +207,31 @@ def test_one_fnv1a_in_the_port_equal_to_jax():
 
 def test_demo_flow_matches_the_scalar_engine_and_jax():
     """scripts/end_to_end_demo.py's flow through the port at the sizes of
-    tests/test_end_to_end.py (the checkpoint step is the WAL's, covered in
-    test_torch_wal.py): the same submissions go to a port host and a JAX
-    host; each replica drains, the port's batch equals JAX's, both engines
-    apply the stacked round, and the states agree after every round."""
+    tests/test_end_to_end.py: the same submissions go to a port host and a
+    JAX host; each replica drains, the port's batch equals JAX's, both
+    engines apply the stacked round, and the states agree after every
+    round."""
+    _demo_flow(None, resume=False)
+
+
+def test_demo_flow_resumes_from_a_checkpoint_like_jax(tmp_path):
+    """The same flow with the demo's mid-stream crash and resume
+    (``scripts/end_to_end_demo.py:116-124``): after round rounds // 2 each
+    package saves its state (the port through its DCP-backed
+    ``harness.orbax_ckpt``, JAX through Orbax), drops it and restores it
+    into zeros; the restored states are equal and the flow goes on from
+    them to equal states (test_end_to_end.py's ``resumed``)."""
+    _demo_flow(tmp_path, resume=True)
+
+
+def _demo_flow(tmp_path, resume):
     import torch
+
+    from jax.tree_util import tree_map as jax_tree_map
+
+    from antidote_ccrdt_tpu.harness import orbax_ckpt as jck
+    from antidote_ccrdt_tpu_torch.harness import orbax_ckpt as pck
+    from antidote_ccrdt_tpu_torch.utils.tree import tree_map
 
     n_dcs, n_ids, k, m, rounds, adds, rmvs = 3, 128, 8, 8, 3, 40, 6
     rng = np.random.default_rng(0)
@@ -223,8 +243,9 @@ def test_demo_flow_matches_the_scalar_engine_and_jax():
     frontiers = np.zeros((n_dcs, n_dcs), np.int32)
     B, Br = 2 * n_dcs * adds, 2 * n_dcs * rmvs
     submitted = delivered = 0
+    resumed = False
     with pnh.NativeHost(n_dcs) as ph, jnh.NativeHost(n_dcs) as jh:
-        for _rnd in range(rounds):
+        for rnd in range(rounds):
             for origin in range(n_dcs):
                 na = int(rng.integers(adds // 2, adds + 1))
                 ids, scores = rng.integers(0, n_ids, na), rng.integers(1, 10_000, na)
@@ -259,6 +280,16 @@ def test_demo_flow_matches_the_scalar_engine_and_jax():
             pstate = pd.apply_ops(pstate, pops, collect_dominated=False)[0]
             jstate = jd.apply_ops(jstate, jops, collect_dominated=False)[0]
             assert_tree(pstate, jstate)
+            if resume and rnd == rounds // 2:
+                with pck.DenseCheckpointManager(str(tmp_path / "port")) as pm, \
+                        jck.DenseCheckpointManager(str(tmp_path / "jax")) as jm:
+                    pm.save(rnd, pstate)
+                    jm.save(rnd, jstate)
+                    pstate = jstate = None  # "crash"
+                    pstate = pm.restore(tree_map(torch.zeros_like, pd.init(n_dcs, 1)))
+                    jstate = jm.restore(jax_tree_map(jnp.zeros_like, jd.init(n_dcs, 1)))
+                assert_tree(pstate, jstate)
+                resumed = True
         assert [ph.backlog(r) for r in range(n_dcs)] == [0] * n_dcs
         assert delivered == submitted * n_dcs == ph.stats()["delivered"]
     assert not bool(pstate.lossy.any())
@@ -274,3 +305,4 @@ def test_demo_flow_matches_the_scalar_engine_and_jax():
         jax_acc = row if jax_acc is None else jd.merge(jax_acc, row)
     assert_tree(acc, jax_acc)
     assert len(pd.value(acc)[0][0]) == k
+    assert resumed == resume

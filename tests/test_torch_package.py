@@ -18,8 +18,8 @@ REPO = Path(__file__).resolve().parent.parent
 # Modules of the compaction and MONOID slice, the validation module, the
 # durable host path (its nine modules), the gossip plane, the serve
 # plane with the audit certifiers, and the overlapped round pipeline
-# with the partition pager, and the bridge server and client; the walk
-# must import each.
+# with the partition pager, the bridge server and client, the mesh plane
+# and the multi-process plane; the walk must import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -39,6 +39,8 @@ NEW_MODULES = [
     "bridge.server", "bridge.client",
     # the single-process mesh plane
     "parallel.dist", "parallel.sharded", "mesh", "mesh.plan", "mesh.reduce", "mesh.gossip",
+    # the multi-process plane
+    "parallel.multihost", "harness.orbax_ckpt", "parallel.orbax_gossip", "scripts.multihost_demo",
 ]
 
 
@@ -102,6 +104,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MeshPlan.build()
     assert MeshPlan.build(n_dc=2, n_key=1, devices=["cpu"] * 2).mesh.device.type == "cpu"
+    # A multi-process world joins on the card unless the caller asks for
+    # the CPU (JAX's CI rig): without a card it raises before any rendezvous.
+    from antidote_ccrdt_tpu_torch.parallel import multihost
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize("localhost:1", 1, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize("localhost:1", 1, 0, backend="gloo", local_devices=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.global_replica_mesh()
+    from antidote_ccrdt_tpu_torch.core.batch_merge import host_device
+
+    with host_device():
+        assert multihost.global_replica_mesh().shape == {"dcn": 1, "dc": 1, "key": 1}
     # An explicit CPU device is the one way to the plain path.
     assert registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, device="cpu").device.type == "cpu"
 

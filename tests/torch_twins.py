@@ -351,6 +351,14 @@ class torch_jnp:
     def ones(shape, dtype=None):
         return torch.ones(shape, dtype=dtype)
 
+    @staticmethod
+    def zeros_like(x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def all(x):
+        return torch.all(x)
+
 
 def leaf_bytes(state):
     """(dtype, shape, bytes) of every leaf in order: equal for equal
@@ -543,3 +551,36 @@ class torch_mesh_jax(torch_jax):
         out = full.clone()
         out[r : r + rows.shape[0]] = rows
         return out
+
+
+class torch_orbax_jax(torch_mesh_jax):
+    """The ``jax`` names ``tests/test_orbax_ckpt.py`` and
+    ``tests/test_orbax_gossip.py`` call, over the port (for `port_copy`):
+    `torch_mesh_jax`'s, plus ``jax.tree.leaves``, ``jax.device_put`` onto
+    a ``parallel.dist`` sharding and ``jax.ShapeDtypeStruct``."""
+
+    class tree(torch_mesh_jax.tree):
+        @staticmethod
+        def leaves(tree):
+            from antidote_ccrdt_tpu_torch.utils.tree import leaves
+
+            return leaves(tree)
+
+    @staticmethod
+    def device_put(x, sharding):
+        from antidote_ccrdt_tpu_torch.parallel.dist import device_put
+
+        return device_put(x, sharding)
+
+    @staticmethod
+    def ShapeDtypeStruct(shape, dtype, sharding=None):
+        from antidote_ccrdt_tpu_torch.parallel.dist import ShapeDtypeStruct
+
+        return ShapeDtypeStruct(shape, dtype, sharding=sharding)
+
+    @staticmethod
+    def leaf_devices(leaf):
+        """``leaf.devices()``: the devices of the mesh the leaf is tagged
+        with; an untagged leaf (an engine's output) is on its device."""
+        sharding = getattr(leaf, "sharding", None)
+        return [leaf.device] if sharding is None else list(sharding.mesh.devices.flat)
