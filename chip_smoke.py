@@ -203,9 +203,30 @@ Phases, each printing one line (any failure exits non-zero):
    layout, a second publish is seen, a cursor sweep of an unchanged peer
    merges nothing; every spawned world killed after a timeout; each
    17a worker and each card worker of 17b must launch K1c, K2 and K3;
-18. the kernels line (launches on each path that drives a kernel, phases
-   9-17 included; phase 17's are its workers' and its sites', not the
-   reference's), then the ok line.
+18. elastic workers: the drill workers of
+   ``antidote_ccrdt_tpu_torch/scripts/`` as real processes. (a) 3
+   ``elastic_demo.py`` workers on the card at the main path's width
+   (``--shape main``: R = D = 32, 100 000 ids, K = 100, M = 4, phase
+   12's stream of 32 768 Zipf(1.2) adds and 2 048 removals a replica and
+   step), each with its own 563 MB state, gossiping chained deltas and
+   anchors through a shared directory for 10 steps, w1 dying at step 4
+   (the failure detector slowed to an 8 s timeout and a 0.25 s heartbeat,
+   the final barrier's window to 60 s, so that an anchor publish is not
+   taken for a death); gates: w1 exits 1, the survivors 0 with digests
+   equal to a sequential reference this process computes on the card from
+   phase 12's ``GossipOps`` (every replica, every step), w1 out of their
+   alive view, each survivor's first K1c, K2 and K3 call equal to the
+   plain version; (b) ``crash_recovery_demo.py``'s wal and adopt arms
+   (group durability) at elastic_demo's width on the card and on the CPU,
+   the four supervisors at once: every verdict ok, the card fleets'
+   final digests the CPU fleets'; (c) ``net_gossip_demo.py``'s TCP crash
+   drill (3 workers, w1 dying at step 4) at elastic_demo's width:
+   survivors at the reference, retries and received frames counted. Each
+   fleet is killed, every process group of it, after a time limit; each
+   18a worker must launch K1c, K2 and K3;
+19. the kernels line (launches on each path that drives a kernel, phases
+   9-18 included; phase 17's are its workers' and its sites', not the
+   reference's; phase 18's its card workers'), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -375,6 +396,23 @@ MULTIHOST_PROCS, MULTIHOST_LOCAL, MULTIHOST_TIMEOUT_S = 2, 16, 300.0
 SITE_DCS = (4, 2)
 # The environment of the spawned workers (None: this process's).
 WORKER_ENV = None
+# Phase 18, the elastic drill workers as real processes
+# (antidote_ccrdt_tpu_torch/scripts/). 18a: ELASTIC_MEMBERS workers of
+# elastic_demo.py at ELASTIC_SHAPE (the main path's width: R = D = 32,
+# 100 000 ids, K = 100, M = 4, phase 12's op stream of 32 768 Zipf(1.2)
+# adds and 2 048 removals a replica and step) over a shared-directory
+# GossipStore with --delta, ELASTIC_STEPS steps, the victim w1 dying at
+# ELASTIC_DIE_AT. Its failure detector is slowed from elastic_demo's 0.4 s
+# timeout and 0.05 s heartbeat to ELASTIC_TIMEOUT and ELASTIC_HB, so that
+# a 563 MB anchor publish is not taken for a death, and its final barrier
+# waits ELASTIC_SETTLE_S for progress (10 s in elastic_demo). 18b:
+# crash_recovery_demo.py's wal and adopt arms (group durability) at
+# elastic_demo's width, on the card and on the CPU. 18c: net_gossip_demo.py's
+# TCP crash drill (3 workers, w1 dying at step 4) at elastic_demo's width.
+# Every fleet is killed after ELASTIC_FLEET_TIMEOUT_S.
+ELASTIC_MEMBERS, ELASTIC_SHAPE, ELASTIC_STEPS, ELASTIC_DIE_AT = ("w0", "w1", "w2"), "main", 10, 4
+ELASTIC_TIMEOUT, ELASTIC_HB, ELASTIC_SETTLE_S, ELASTIC_FLEET_TIMEOUT_S = 8.0, 0.25, 60.0, 420.0
+ELASTIC_VICTIM = "w1"
 
 
 # Phase 4's merge rates, read again beside phase 15's wire rates.
@@ -4532,6 +4570,271 @@ def phase_multihost(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+def _worker_env() -> dict:
+    """The spawned workers' environment: this process's (or WORKER_ENV),
+    the repository on the path, one CPU thread a worker."""
+    env = dict(os.environ if WORKER_ENV is None else WORKER_ENV)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
+    env.setdefault("OMP_NUM_THREADS", "1")
+    return env
+
+
+def run_procs(cmds: dict, root: str, timeout_s: float) -> dict:
+    """Start one process a name of `cmds` (argument lists after ``python``,
+    run from the repository root, each in a session of its own), and wait
+    for all: {name: dict(rc, out, spawn_t, exit_t)} on the wall clock. A
+    fleet that outlives `timeout_s` is killed, every process group of it,
+    and raises."""
+    import signal
+
+    env = _worker_env()
+    logs = {n: open(os.path.join(root, f"proc-{n}.log"), "w+") for n in cmds}
+    procs, got = {}, {}
+
+    def wait(n, p):
+        p.wait()
+        got[n]["exit_t"] = time.time()
+
+    threads = []
+    try:
+        for n, cmd in cmds.items():
+            got[n] = dict(spawn_t=time.time())
+            procs[n] = subprocess.Popen([sys.executable, *cmd], stdout=logs[n], stderr=subprocess.STDOUT, cwd=ROOT,
+                                        env=env, start_new_session=True)
+            threads.append(threading.Thread(target=wait, args=(n, procs[n]), daemon=True))
+            threads[-1].start()
+        deadline = time.monotonic() + timeout_s
+        for t in threads:
+            t.join(max(0.1, deadline - time.monotonic()))
+        late = [n for n, p in procs.items() if p.poll() is None]
+        if late:
+            raise AssertionError(f"a fleet outlived {timeout_s} s: {late} still running")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for n, f in logs.items():
+            f.seek(0)
+            got.setdefault(n, {})["out"] = f.read()
+            f.close()
+    for n, p in procs.items():
+        got[n]["rc"] = p.returncode
+    return got
+
+
+def gossip_reference(torch, dev: str, geo) -> list:
+    """The sequential ground truth of an elastic drill of width `geo` (the
+    port's ``elastic_demo.Geometry``), independent of the worker's code:
+    every replica's GossipOps batch of every step applied to one state,
+    the rows folded, the observable top K."""
+    from antidote_ccrdt_tpu_torch import registry
+    from antidote_ccrdt_tpu_torch.harness.dense_replay import fold_rows
+
+    dense = registry.make_dense("topk_rmv", n_ids=geo.I, n_dcs=geo.DCS, size=geo.K, slots_per_id=geo.M,
+                                device=dev)
+    gen = GossipOps(geo.R, geo.I, geo.B, geo.Br, dev, zipf=geo.zipf)
+    state = dense.init(geo.R, geo.NK)
+    for step in range(ELASTIC_STEPS):
+        state = dense.apply_ops(state, gen.batch(step, range(geo.R)), collect_dominated=False)[0]
+    obs = dense.value(fold_rows(dense, state, range(geo.R)))[0][0]
+    return sorted([int(i), int(sc)] for (i, sc) in obs)
+
+
+def _worker_numbers(rep: dict) -> dict:
+    """A worker report's per-worker line: p50 step, publish and sweep ms
+    (and their sums), the first apply, peak GB."""
+    return dict(step_p50_ms=pct(rep["step_ms"], 0.5), publish_p50_ms=pct(rep["publish_ms"], 0.5),
+                publish_ms_sum=sum(rep["publish_ms"]), publishes=len(rep["publish_ms"]),
+                sweep_p50_ms=pct(rep["sweep_ms"], 0.5), sweep_ms_sum=sum(rep["sweep_ms"]), sweeps=len(rep["sweep_ms"]),
+                pipeline_close_ms=sum(rep["close_ms"]), barrier_rounds=len(rep["barrier_sweep_ms"]),
+                barrier_publish_ms_sum=sum(rep["barrier_publish_ms"]), barrier_sweep_ms_sum=sum(rep["barrier_sweep_ms"]),
+                first_apply_ms=rep["first_apply_ms"], peak_gb=rep["peak_gb"], launches=rep["launches"])
+
+
+def run_drill_fleet(torch, dev: str, module: str, root: str, shape: str, extra=(), hold: bool = False) -> dict:
+    """One crash drill of ELASTIC_MEMBERS workers of `module` on `dev`
+    (the victim dying at ELASTIC_DIE_AT): each survivor's final document
+    and report, the victim's exit time, the fleet's seconds from spawn to
+    exit. Fails unless the victim exits 1 and the survivors 0, with
+    digests equal to `gossip_reference`, the victim out of their alive
+    view, and (with `hold`) their first K1c, K2 and K3 calls equal to the
+    plain versions."""
+    from antidote_ccrdt_tpu_torch.scripts.elastic_demo import parse_shape
+
+    geo = parse_shape(shape)
+    cmds = {}
+    for m in ELASTIC_MEMBERS:
+        cmds[m] = ["-m", module, "--root", root, "--member", m, "--n-members", str(len(ELASTIC_MEMBERS)),
+                   "--type", "topk_rmv", "--device", dev, "--shape", shape, "--steps", str(ELASTIC_STEPS),
+                   "--report", os.path.join(root, f"report-{m}.json"), *extra, *(["--hold"] if hold else []),
+                   *(["--die-at", str(ELASTIC_DIE_AT)] if m == ELASTIC_VICTIM else [])]
+    t0 = time.time()
+    got = run_procs(cmds, root, ELASTIC_FLEET_TIMEOUT_S)
+    fleet_s = max(g["exit_t"] for g in got.values()) - t0
+    victim = got[ELASTIC_VICTIM]
+    if victim["rc"] != 1:
+        raise AssertionError(f"18: the victim exited {victim['rc']}, not 1:\n{victim['out'][-4000:]}")
+    ref = gossip_reference(torch, dev, geo)
+    if not ref:
+        raise AssertionError("18: the reference observable is empty")
+    out = dict(fleet_s=fleet_s, death_t=victim["exit_t"], finals={}, reports={})
+    for m in ELASTIC_MEMBERS:
+        if m == ELASTIC_VICTIM:
+            continue
+        if got[m]["rc"] != 0:
+            raise AssertionError(f"18: survivor {m} exited {got[m]['rc']}:\n{got[m]['out'][-6000:]}")
+        with open(os.path.join(root, f"final-{m}.json")) as f:
+            final = json.load(f)
+        with open(os.path.join(root, f"report-{m}.json")) as f:
+            rep = json.load(f)
+        if final["digest"] != ref:
+            raise AssertionError(f"18: survivor {m}'s digest differs from the sequential reference")
+        if ELASTIC_VICTIM in final["alive"]:
+            raise AssertionError(f"18: survivor {m} still counts the victim alive")
+        if hold and (set(rep["held"]) != {"K1c", "K2", "K3"} or
+                     any(v["max_abs_err"] or not v["equal"] for v in rep["held"].values())):
+            raise AssertionError(f"18: survivor {m}'s held calls {rep['held']}")
+        out["finals"][m], out["reports"][m] = final, rep
+    out["valid_observed"] = len(ref)
+    return out
+
+
+def _recovery_times(drill: dict) -> dict:
+    """Seconds from the victim's death to each survivor's first adoption
+    pass after it, and to the end of its final barrier."""
+    out = {}
+    for m, rep in drill["reports"].items():
+        after = [a["t"] for a in rep["adoptions"] if a["t"] >= drill["death_t"] and a["step"] > 0]
+        out[m] = dict(death_to_adoption_s=(min(after) - drill["death_t"]) if after else None,
+                      death_to_final_barrier_s=rep["t_barrier_end"] - drill["death_t"])
+    return out
+
+
+def run_crash_recovery(dev: str, root: str, mode: str) -> dict:
+    """18b: one ``crash_recovery_demo --mode <mode> --durability group`` on
+    `dev`, its workers' reports kept: the verdict and every final
+    incarnation's report."""
+    rep_dir = os.path.join(root, "reports")
+    got = run_procs({"supervisor": ["-m", "antidote_ccrdt_tpu_torch.scripts.crash_recovery_demo", "--mode", mode,
+                                    "--durability", "group", "--device", dev, "--report-dir", rep_dir]},
+                    root, ELASTIC_FLEET_TIMEOUT_S)["supervisor"]
+    text = got["out"]
+    try:
+        verdicts = json.JSONDecoder().raw_decode(text[text.index("[\n"):])[0]
+    except ValueError:
+        raise AssertionError(f"18b: the {dev} supervisor printed no verdicts (rc {got['rc']}):\n{text[-6000:]}")
+    if got["rc"] != 0 or [v["mode"] for v in verdicts] != [mode] or not all(v["ok"] for v in verdicts):
+        raise AssertionError(f"18b: the {dev} drills failed (rc {got['rc']}): {json.dumps(verdicts)[:4000]}")
+    reports = {}
+    for fn in sorted(os.listdir(rep_dir)):
+        with open(os.path.join(rep_dir, fn)) as f:
+            reports[fn[:-5]] = json.load(f)
+    return dict(verdicts=verdicts, reports=reports, supervisor_s=got["exit_t"] - got["spawn_t"])
+
+
+def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 18: the elastic drill workers of antidote_ccrdt_tpu_torch/scripts
+    as real processes. (a) `run_drill_fleet` of elastic_demo.py at
+    ELASTIC_SHAPE with --delta, survivors' first kernel calls held; (b)
+    crash_recovery_demo.py's wal and adopt arms on `dev` and on the CPU
+    at once, every verdict ok and the card fleet's final digests the CPU
+    fleet's; (c) net_gossip_demo.py's TCP crash drill at elastic_demo's
+    width, converged with retries and received frames counted. Returns
+    the path's launches: every card worker's that wrote a report (the
+    survivors and the restarted victims; a killed worker writes none)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()  # the workers share the card
+    launches = {n: 0 for n in SOURCES}
+
+    def add(rep):
+        for n, v in rep["launches"].items():
+            launches[n] += v
+
+    fs_module = "antidote_ccrdt_tpu_torch.scripts.elastic_demo"
+    tcp_module = "antidote_ccrdt_tpu_torch.scripts.net_gossip_demo"
+    with tempfile.TemporaryDirectory() as tmp:
+        # 18a: the crash drill at the main path's width.
+        root = os.path.join(tmp, "a")
+        os.makedirs(root)
+        slow = ["--delta", "--timeout", str(ELASTIC_TIMEOUT), "--hb-interval", str(ELASTIC_HB),
+                "--settle-s", str(ELASTIC_SETTLE_S)]
+        a = run_drill_fleet(torch, dev, fs_module, root, ELASTIC_SHAPE, slow, hold=True)
+        for rep in a["reports"].values():
+            add(rep)
+            if on_card:
+                require_launches(rep["launches"], ("scatter_max_rows_copy", "delta_place", "sort_slots"),
+                                 f"18a worker {rep['member']}")
+        log("18a elastic", card=card, shape=ELASTIC_SHAPE, members=len(ELASTIC_MEMBERS), steps=ELASTIC_STEPS,
+            die_at=ELASTIC_DIE_AT, timeout_s=ELASTIC_TIMEOUT, hb_interval_s=ELASTIC_HB, settle_s=ELASTIC_SETTLE_S,
+            fleet_s=a["fleet_s"], per_worker={m: _worker_numbers(r) for m, r in a["reports"].items()},
+            recovery=_recovery_times(a), held={m: r["held"] for m, r in a["reports"].items()},
+            confirmed_dead={m: r["confirmed_dead"] for m, r in a["reports"].items()},
+            converged=True, valid_observed=a["valid_observed"])
+        del a
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # 18b: crash_recovery_demo's two arms on the card and on the CPU,
+        # the four supervisors at once.
+        t_b = time.perf_counter()
+        devs = {"card": dev, "cpu": "cpu"} if on_card else {"cpu": "cpu"}
+        runs = [(name, mode) for name in devs for mode in ("wal", "adopt")]
+        for name, mode in runs:
+            os.makedirs(os.path.join(tmp, f"b-{name}-{mode}"))
+        with ThreadPoolExecutor(len(runs)) as pool:
+            futs = {(name, mode): pool.submit(run_crash_recovery, devs[name], os.path.join(tmp, f"b-{name}-{mode}"),
+                                              mode) for name, mode in runs}
+            done = {k: f.result() for k, f in futs.items()}
+        b = {name: dict(verdicts=[done[name, m]["verdicts"][0] for m in ("wal", "adopt")],
+                        reports={k: r for m in ("wal", "adopt") for k, r in done[name, m]["reports"].items()},
+                        supervisor_s={m: done[name, m]["supervisor_s"] for m in ("wal", "adopt")})
+             for name in devs}
+        card_b = b["card"] if on_card else b["cpu"]
+        if set(card_b["reports"]) != set(b["cpu"]["reports"]):
+            raise AssertionError(f"18b: the fleets' reports {sorted(card_b['reports'])}, {sorted(b['cpu']['reports'])}")
+        for key, rep in b["cpu"]["reports"].items():
+            if card_b["reports"][key]["digest"] != rep["digest"]:
+                raise AssertionError(f"18b: worker {key}'s final digest differs between the fleets")
+        for rep in card_b["reports"].values():
+            if on_card:
+                add(rep)
+        victims = {k: dict(recovered_records=r["wal_recovered_records"], resume_step=r["wal_resume_step"],
+                           recover_s=r.get("wal_recover_s"))
+                   for k, r in card_b["reports"].items() if k.split("-")[2] == ELASTIC_VICTIM}
+        log("18b crash recovery", card=card, arms=[f"{v['mode']}/{v['durability']}" for v in card_b["verdicts"]],
+            verdicts_ok=True, kill_seq=[v["kill_seq"] for v in card_b["verdicts"]], victims=victims,
+            supervisor_s={n: r["supervisor_s"] for n, r in b.items()},
+            per_worker={k: _worker_numbers(r) for k, r in card_b["reports"].items()},
+            card_equals_cpu=on_card, reduced_s=time.perf_counter() - t_b)
+
+        # 18c: the TCP crash drill at elastic_demo's width.
+        root = os.path.join(tmp, "c")
+        os.makedirs(root)
+        c = run_drill_fleet(torch, dev, tcp_module, root, "demo")
+        for m, final in c["finals"].items():
+            mets = final["metrics"]
+            if not (mets.get("net.retries", 0) > 0 and mets.get("net.frames_recv", 0) > 0):
+                raise AssertionError(f"18c: {m}'s net counters {mets}")
+        for rep in c["reports"].values():
+            if on_card:
+                add(rep)
+        log("18c tcp", card=card, fleet_s=c["fleet_s"], per_worker={m: _worker_numbers(r) for m, r in c["reports"].items()},
+            recovery=_recovery_times(c),
+            net={m: {k: f["metrics"].get(k) for k in ("net.retries", "net.frames_recv", "net.frames_sent")}
+                 for m, f in c["finals"].items()},
+            converged=True, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -4568,6 +4871,7 @@ def main() -> int:
     bridge = phase_bridge(torch, card)
     mesh = phase_mesh(torch, card)
     multihost = phase_multihost(torch, card)
+    elastic = phase_elastic(torch, card)
     # `launches` is the count of the path that drives the kernel first
     # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
     # path's own count, each read from 0, is in `launches_by_path`.
@@ -4578,7 +4882,7 @@ def main() -> int:
                       ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
                       ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged),
                       ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh),
-                      ("multihost (phase 17)", multihost)):
+                      ("multihost (phase 17)", multihost), ("elastic workers (phase 18)", elastic)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

@@ -1036,3 +1036,47 @@ def test_multihost_dcp_round_trip_of_a_card_state(cuda, tmp_path):
         assert all(g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu()) for g, w in zip(leaves(got), leaves(state)))
     assert all(a.is_cuda for a in leaves(on_card)) and not any(a.is_cuda for a in leaves(on_cpu))
     assert all(a.is_cuda and a.sharding == sh for a in leaves(placed))
+
+
+def _elastic_fleet(tmp, device):
+    """elastic_demo's crash drill (3 port workers at its width, w1 dying at
+    step 4) as real processes on `device`: the survivors' final documents."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    procs = {m: subprocess.Popen([sys.executable, "-m", "antidote_ccrdt_tpu_torch.scripts.elastic_demo",
+                                  "--root", str(tmp), "--member", m, "--n-members", "3", "--device", device,
+                                  *(["--die-at", "4"] if m == "w1" else [])],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+             for m in ("w0", "w1", "w2")}
+    try:
+        outs = {m: p.communicate(timeout=240)[0] for m, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    assert procs["w1"].returncode == 1, outs["w1"]
+    finals = {}
+    for m in ("w0", "w2"):
+        assert procs[m].returncode == 0, outs[m]
+        with open(os.path.join(str(tmp), f"final-{m}.json")) as f:
+            finals[m] = json.load(f)
+    return finals
+
+
+@pytest.mark.cuda
+def test_elastic_crash_fleet_on_card_converges_to_the_card_reference(cuda, tmp_path):
+    """Three elastic_demo workers on the card, w1 crashing (os._exit) at
+    step 4: the survivors adopt its replicas and reach the sequential
+    reference computed on the card, which is the CPU's."""
+    from antidote_ccrdt_tpu_torch.scripts.elastic_demo import reference_digest
+
+    ref = [list(p) for p in reference_digest("topk_rmv", device=cuda)]
+    assert ref and ref == [list(p) for p in reference_digest("topk_rmv", device="cpu")]
+    for m, final in _elastic_fleet(tmp_path, "cuda").items():
+        assert final["digest"] == ref, m
+        assert "w1" not in final["alive"]

@@ -5,9 +5,10 @@ the JAX package's.
   and the in-process cases of ``tests/test_elastic.py`` run again through
   the port, with the drills of ``torch_twins`` (scripts/elastic_demo.py's
   op streams, adoption and digests, built for the port) in place of
-  elastic_demo's. Left out: ``test_elastic.py``'s five real-process drills,
-  which start the JAX package's ``scripts/elastic_demo.py`` workers (its
-  worker imports the audit, serve, mesh and overlap planes, not ported).
+  elastic_demo's. Left out here: ``test_elastic.py``'s five real-process
+  drills, which ``test_torch_elastic_worker.py`` runs with the port's
+  worker (``antidote_ccrdt_tpu_torch/scripts/elastic_demo.py``), so that
+  each case runs once.
   ``test_topo_matches_full_mesh_digests`` compares the port's zone fleet
   with the JAX package's own full-mesh run.
 """

@@ -3,7 +3,9 @@ the JAX package's.
 
 * Every case of ``tests/test_overlap.py`` and ``tests/test_ingest_fastpath.py``
   runs again through the port, with the drills of ``torch_twins`` in place
-  of scripts/elastic_demo.py's, less the two in `LEFT_OUT`.
+  of scripts/elastic_demo.py's, less the one in `LEFT_OUT`; the slow
+  SIGKILL drill runs the port's ``scripts/crash_recovery_demo.py``
+  (``--device cpu``).
 * The same seeded chaos drill through both packages' `OverlapPipeline`s
   ends in equal digests and equal ``overlap.*`` counters.
 * Only what a malformed payload raises is billed; any other error in a
@@ -20,14 +22,15 @@ _DEMO = ("from elastic_demo import DRILLS, R, STEPS, reference_digest",
 LEFT_OUT = {
     "test_merge_slots_cached_per_bound_method":
         "the port has no jit cache: merges run out of place, with no slots to cache (ROADMAP C)",
-    "test_sigkill_mid_window_with_overlap_recovers_via_wal":
-        "it starts the JAX package's scripts/crash_recovery_demo.py worker (ROADMAP A, item 5)",
 }
 
 globals().update(port_copies(
     ("test_overlap.py", dict(skip=list(LEFT_OUT), helpers=["run_overlap_chaos"], replace=[
         _DEMO, ("    merge_slots,\n", ""), ("    import jax\n", "    from torch_twins import torch_jax as jax\n"),
         ("from test_net_chaos import run_chaos", "from torch_twins import port_run_chaos as run_chaos"),
+        ('os.path.join(REPO, "scripts", "crash_recovery_demo.py"),\n         "--mode", "wal", "--durability", "group"]',
+         'os.path.join(REPO, "antidote_ccrdt_tpu_torch", "scripts", "crash_recovery_demo.py"),\n'
+         '         "--mode", "wal", "--durability", "group", "--device", "cpu"]'),
     ])),
     ("test_ingest_fastpath.py", dict(replace=[_DEMO])),
 ))

@@ -18,8 +18,9 @@ REPO = Path(__file__).resolve().parent.parent
 # Modules of the compaction and MONOID slice, the validation module, the
 # durable host path (its nine modules), the gossip plane, the serve
 # plane with the audit certifiers, and the overlapped round pipeline
-# with the partition pager, the bridge server and client, the mesh plane
-# and the multi-process plane; the walk must import each.
+# with the partition pager, the bridge server and client, the mesh plane,
+# the multi-process plane and the elastic drill worker; the walk must
+# import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -41,7 +42,10 @@ NEW_MODULES = [
     "parallel.dist", "parallel.sharded", "mesh", "mesh.plan", "mesh.reduce", "mesh.gossip",
     # the multi-process plane
     "parallel.multihost", "harness.orbax_ckpt", "parallel.orbax_gossip", "scripts.multihost_demo",
+    # the elastic drill worker
+    "scripts.elastic_demo", "scripts.net_gossip_demo", "scripts.crash_recovery_demo",
 ]
+WORKER_SCRIPTS = ["elastic_demo", "net_gossip_demo", "crash_recovery_demo"]
 
 
 def test_import_pulls_in_no_jax():
@@ -61,6 +65,21 @@ def test_import_pulls_in_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("name", WORKER_SCRIPTS)
+def test_worker_scripts_import_no_jax_nor_the_jax_package_nor_its_scripts(name):
+    """Every import statement of the port's worker scripts, those inside
+    functions included, names neither jax, nor the JAX package, nor the
+    repository's `scripts` package (the port keeps its own copies)."""
+    import ast
+
+    tree = ast.parse((REPO / "antidote_ccrdt_tpu_torch" / "scripts" / f"{name}.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "antidote_ccrdt_tpu", "scripts")]
+    assert not bad, bad
+    assert any(m.startswith("antidote_ccrdt_tpu_torch.") for m in names)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

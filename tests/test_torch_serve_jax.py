@@ -130,15 +130,40 @@ def test_views_and_answer_bytes_equal_jax(name):
     assert planes["torch"].metrics.snapshot()["counters"] == planes["jax"].metrics.snapshot()["counters"]
 
 
+class _StepClock:
+    """A monotonic clock that only its own `sleep` and the caller's
+    `advance` move: deadlines and the durable wait of an `IngestPlane`
+    run on it, however slowly the threads are scheduled."""
+
+    def __init__(self):
+        self.t = 0.0
+        self._lock = threading.Lock()
+
+    def mono(self):
+        with self._lock:
+            return self.t
+
+    def sleep(self, dt):
+        self.advance(dt)
+
+    def advance(self, dt):
+        with self._lock:
+            self.t += dt
+
+
 def _ingest_run(pkg):
     """Seeded writes into one IngestPlane, each drained at a known seq by
     this thread once the writer thread has parked it: the ack bytes and
-    the plane's flight events."""
+    the plane's flight events. The plane's deadlines run on a `_StepClock`
+    (write 4's durable wait downgrades when its fake sleeps pass the
+    deadline), and `ack_timeout_s` is long enough that a writer parked
+    on the real clock outwaits any stall of this thread."""
     serve, _audit, events, _tcp = PKGS[pkg]
     events.reset("ing")
     durable = {"seq": 2}
+    clock = _StepClock()
     plane = serve.IngestPlane("w0", durable_fn=lambda: durable["seq"], watermarks_fn=lambda: {"w0": 7, "w1": 3},
-                               ack_timeout_s=1.0, poll_s=0.001)
+                               ack_timeout_s=60.0, poll_s=0.01, mono=clock.mono, sleep=clock.sleep)
     rng = np.random.default_rng(5)
     docs = []
     for i in range(6):
@@ -151,12 +176,13 @@ def _ingest_run(pkg):
         out = []
         th = threading.Thread(target=lambda r=raw: out.append(plane.handle(r)))
         th.start()
-        deadline = time.monotonic() + 5.0
+        deadline = time.monotonic() + 60.0
         while plane.depth() < 1 and time.monotonic() < deadline:
             time.sleep(0.001)
+        clock.advance(0.001)
         durable["seq"] = 0 if i == 4 else 10 + i  # write 4's durable ack downgrades
         assert plane.drain(10 + i, folded.extend) == 1
-        th.join(5.0)
+        th.join(60.0)
         acks.append(out[0])
     acks.append(plane.handle(docs[1]))  # a duplicate re-acks
     acks.append(plane.handle(b'{"write_id": "bad"}'))

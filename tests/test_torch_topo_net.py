@@ -4,9 +4,9 @@
 * Every case of ``tests/test_topo.py``, ``tests/test_net_membership.py``,
   ``tests/test_net_transport.py`` and ``tests/test_net_tcp.py`` runs again
   through the port (`torch_twins.port_copy`; the engines run on the CPU
-  inside ``host_device``). Left out: ``test_net_tcp.py``'s real-process
-  drill, which starts the JAX package's ``scripts/elastic_demo.py``
-  workers (marked slow there as well).
+  inside ``host_device``). ``test_net_tcp.py``'s real-process drill
+  (marked slow) starts the port's ``scripts/net_gossip_demo.py`` workers
+  (``--device cpu``); its reference stays JAX's ``reference_digest``.
 """
 
 import pytest
@@ -20,7 +20,12 @@ _DEMO = ("from elastic_demo import DRILLS", "from torch_twins import DEMO_DRILLS
 globals().update(port_copy("test_topo.py", replace=[_DEMO]))
 globals().update(port_copy("test_net_membership.py"))
 globals().update(port_copy("test_net_transport.py", replace=[_JNP]))
-globals().update(port_copy("test_net_tcp.py", skip=["test_real_process_tcp_crash_recovery"]))
+globals().update(port_copy("test_net_tcp.py", replace=[
+    ('DEMO = os.path.join(REPO, "scripts", "net_gossip_demo.py")',
+     'DEMO = os.path.join(REPO, "antidote_ccrdt_tpu_torch", "scripts", "net_gossip_demo.py")'),
+    ('"--n-members", "3", "--type", "topk_rmv", *extra]',
+     '"--n-members", "3", "--type", "topk_rmv", "--device", "cpu", *extra]'),
+]))
 
 
 @pytest.fixture(autouse=True)

@@ -374,7 +374,7 @@ def leaf_bytes(state):
     return [(a.dtype.str, a.shape, a.tobytes()) for a in flat]
 
 
-def port_copy(test_file, skip=(), replace=(), helpers=()):
+def port_copy(test_file, skip=(), replace=(), helpers=(), imports=True):
     """The test functions and fixtures of the JAX package's `test_file`
     (a file in this directory), compiled again with every import of
     ``antidote_ccrdt_tpu`` turned into one of ``antidote_ccrdt_tpu_torch``
@@ -382,13 +382,16 @@ def port_copy(test_file, skip=(), replace=(), helpers=()):
     must occur): the same test
     bodies, run through the port. Tests named in `skip` need a part of the
     JAX package the port does not have yet and are left out. `helpers`
-    names further functions of the copy to return with the tests."""
+    names further functions of the copy to return with the tests. A file
+    that imports nothing of the package (it drives a script in a
+    subprocess) is copied with ``imports=False``: only `replace` applies."""
     import os
 
     path = os.path.join(os.path.dirname(__file__), test_file)
     with open(path) as f:
         src = f.read()
-    for old, new in (("antidote_ccrdt_tpu.", "antidote_ccrdt_tpu_torch."), *replace):
+    pairs = (("antidote_ccrdt_tpu.", "antidote_ccrdt_tpu_torch."),) if imports else ()
+    for old, new in (*pairs, *replace):
         assert old in src, (test_file, old)
         src = src.replace(old, new)
     ns = {"__name__": f"{test_file[:-3]}_through_the_port", "__file__": path}
