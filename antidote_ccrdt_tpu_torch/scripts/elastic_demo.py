@@ -626,6 +626,15 @@ def run_worker(store, drill, dense, state, args, result_dir, report=None):
     from antidote_ccrdt_tpu_torch.obs import devprof as obs_devprof
 
     obs_devprof.install_from_env(store.metrics)
+
+    def apply_owned(state, step, owned):
+        """The step's op apply, observed as dispatch site "drill.apply":
+        the worker's first kernel launches happen here, and a kernel's
+        first load is the port's compile event (obs/devprof.py)."""
+        if obs_profile.ACTIVE or obs_devprof.ACTIVE:
+            with obs_profile.dispatch("drill.apply", fn=getattr(dense, "apply_ops", None)):
+                return drill.apply(dense, state, step, owned)
+        return drill.apply(dense, state, step, owned)
     # Span plane (CCRDT_SPANS): round-phase spans spill next to the flight
     # log and mirror into metrics as span.* latency series.
     from antidote_ccrdt_tpu_torch.obs import spans as obs_spans
@@ -1064,11 +1073,11 @@ def run_worker(store, drill, dense, state, args, result_dir, report=None):
             # waiting for it. The sync point exists only when the span
             # plane is on — the untraced path is untouched.
             with obs_spans.span("round.device_dispatch", step=step, site="drill.apply"):
-                state = drill.apply(dense, state, step, sorted(owned))
+                state = apply_owned(state, step, sorted(owned))
             with obs_spans.span("round.device_sync", step=step):
                 report.device_sync()
         else:
-            state = drill.apply(dense, state, step, sorted(owned))
+            state = apply_owned(state, step, sorted(owned))
         if first:
             report.sync()
             report.doc["first_apply_ms"] = (time.perf_counter() - t0) * 1e3

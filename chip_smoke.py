@@ -224,9 +224,30 @@ Phases, each printing one line (any failure exits non-zero):
    survivors at the reference, retries and received frames counted. Each
    fleet is killed, every process group of it, after a time limit; each
    18a worker must launch K1c, K2 and K3;
-19. the kernels line (launches on each path that drives a kernel, phases
-   9-18 included; phase 17's are its workers' and its sites', not the
-   reference's; phase 18's its card workers'), then the ok line.
+19. observability fleets: the operator tools of
+   ``antidote_ccrdt_tpu_torch/scripts/`` as subprocesses on the card. (a)
+   ``obs_dashboard --demo`` (3 TCP workers of ``net_gossip_demo.py`` at
+   elastic_demo's width, live HTTP and in-band scrapes, every delta's
+   complete path, ``ccrdt_trace``); (b) ``spans_demo`` (coverage at least
+   0.5, every phase lit, clock offsets, each worker's rounds), its
+   coverage, rounds, offset edges and each phase's p50; (c)
+   ``overlap_demo`` whole: both arms' digests the reference, the pipeline's
+   counters, round.e2e p50 at least 0.30 below the serial arm's, each
+   arm's dispatch gap; (d) phase 18a's crash drill again with
+   ``CCRDT_SPANS=1``, ``CCRDT_DEVPROF=1`` and a spill directory, read by
+   ``ccrdt_spans merge`` (spans of both survivors) and ``attribute``,
+   ``ccrdt_trace summary`` and ``ccrdt_devprof churn`` and
+   ``watermarks``, each survivor's step loop printed from its spans (each
+   phase's p50, the step at which the first peer window was applied, the
+   anchor snapshots beside the steps); (e) ``ccrdt_audit laws`` on the card
+   equal byte for byte to the CPU's, ``laws --selftest``, and ``certify
+   --final-dir`` and ``verify`` over (b)'s fleet against this process's
+   reference; (a), (b) and (e)'s law checks run at once, (c) and (d)
+   alone; every leg's worker reports counted, each leg must launch K1c,
+   K2 and K3;
+20. the kernels line (launches on each path that drives a kernel, phases
+   9-19 included; phase 17's are its workers' and its sites', not the
+   reference's; phases 18 and 19 their card workers'), then the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -243,6 +264,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -413,6 +435,21 @@ WORKER_ENV = None
 ELASTIC_MEMBERS, ELASTIC_SHAPE, ELASTIC_STEPS, ELASTIC_DIE_AT = ("w0", "w1", "w2"), "main", 10, 4
 ELASTIC_TIMEOUT, ELASTIC_HB, ELASTIC_SETTLE_S, ELASTIC_FLEET_TIMEOUT_S = 8.0, 0.25, 60.0, 420.0
 ELASTIC_VICTIM = "w1"
+# Phase 19, the operator's observability tools of
+# antidote_ccrdt_tpu_torch/scripts/ (ccrdt_{trace,spans,rtrace,devprof,audit},
+# obs_dashboard, spans_demo, overlap_demo), each run as `python -m`: 19a
+# obs_dashboard --demo, 19b spans_demo and 19c overlap_demo (3 TCP workers of
+# net_gossip_demo.py at elastic_demo's width each, the demos' own settings),
+# 19d phase 18a's crash drill again with the span plane and the device
+# observatory on, its spill read by ccrdt_spans, ccrdt_trace and
+# ccrdt_devprof, 19e ccrdt_audit laws on the card and the CPU (every
+# registered type, 512 pairs) and its certify and verify over 19b's fleet. A
+# demo is killed after OBS_TIMEOUT_S, a CLI after OBS_CLI_TIMEOUT_S.
+OBS_TIMEOUT_S, OBS_CLI_TIMEOUT_S = 300.0, 120.0
+TOOLS = "antidote_ccrdt_tpu_torch.scripts."
+# A fleet line of obs.spans.format_report (the demos print one a fleet).
+SPANS_FLEET_LINE = re.compile(r"rounds=(\d+) e2e p50 ([\d.]+)ms \| serial ([\d.]+)ms overlappable ([\d.]+)ms "
+                              r"gap ([\d.]+)ms \(coverage ([\d.]+)%\)")
 
 
 # Phase 4's merge rates, read again beside phase 15's wire rates.
@@ -4570,24 +4607,25 @@ def phase_multihost(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
-def _worker_env() -> dict:
+def _worker_env(extra=None) -> dict:
     """The spawned workers' environment: this process's (or WORKER_ENV),
-    the repository on the path, one CPU thread a worker."""
+    the repository on the path, one CPU thread a worker, then `extra`."""
     env = dict(os.environ if WORKER_ENV is None else WORKER_ENV)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
     env.setdefault("OMP_NUM_THREADS", "1")
+    env.update(extra or {})
     return env
 
 
-def run_procs(cmds: dict, root: str, timeout_s: float) -> dict:
+def run_procs(cmds: dict, root: str, timeout_s: float, env=None) -> dict:
     """Start one process a name of `cmds` (argument lists after ``python``,
-    run from the repository root, each in a session of its own), and wait
-    for all: {name: dict(rc, out, spawn_t, exit_t)} on the wall clock. A
-    fleet that outlives `timeout_s` is killed, every process group of it,
-    and raises."""
+    run from the repository root, each in a session of its own, with the
+    further environment `env`), and wait for all: {name: dict(rc, out,
+    spawn_t, exit_t)} on the wall clock. A fleet that outlives `timeout_s`
+    is killed, every process group of it, and raises."""
     import signal
 
-    env = _worker_env()
+    env = _worker_env(env)
     logs = {n: open(os.path.join(root, f"proc-{n}.log"), "w+") for n in cmds}
     procs, got = {}, {}
 
@@ -4624,6 +4662,15 @@ def run_procs(cmds: dict, root: str, timeout_s: float) -> dict:
     return got
 
 
+def read_reports(rep_dir: str) -> dict:
+    """{file stem: document} of the worker reports in `rep_dir`."""
+    reports = {}
+    for fn in sorted(os.listdir(rep_dir)):
+        with open(os.path.join(rep_dir, fn)) as f:
+            reports[fn[:-len(".json")]] = json.load(f)
+    return reports
+
+
 def gossip_reference(torch, dev: str, geo) -> list:
     """The sequential ground truth of an elastic drill of width `geo` (the
     port's ``elastic_demo.Geometry``), independent of the worker's code:
@@ -4653,9 +4700,11 @@ def _worker_numbers(rep: dict) -> dict:
                 first_apply_ms=rep["first_apply_ms"], peak_gb=rep["peak_gb"], launches=rep["launches"])
 
 
-def run_drill_fleet(torch, dev: str, module: str, root: str, shape: str, extra=(), hold: bool = False) -> dict:
+def run_drill_fleet(torch, dev: str, module: str, root: str, shape: str, extra=(), hold: bool = False,
+                    env=None) -> dict:
     """One crash drill of ELASTIC_MEMBERS workers of `module` on `dev`
-    (the victim dying at ELASTIC_DIE_AT): each survivor's final document
+    (the victim dying at ELASTIC_DIE_AT; `env` added to the workers'
+    environment): each survivor's final document
     and report, the victim's exit time, the fleet's seconds from spawn to
     exit. Fails unless the victim exits 1 and the survivors 0, with
     digests equal to `gossip_reference`, the victim out of their alive
@@ -4671,7 +4720,7 @@ def run_drill_fleet(torch, dev: str, module: str, root: str, shape: str, extra=(
                    "--report", os.path.join(root, f"report-{m}.json"), *extra, *(["--hold"] if hold else []),
                    *(["--die-at", str(ELASTIC_DIE_AT)] if m == ELASTIC_VICTIM else [])]
     t0 = time.time()
-    got = run_procs(cmds, root, ELASTIC_FLEET_TIMEOUT_S)
+    got = run_procs(cmds, root, ELASTIC_FLEET_TIMEOUT_S, env=env)
     fleet_s = max(g["exit_t"] for g in got.values()) - t0
     victim = got[ELASTIC_VICTIM]
     if victim["rc"] != 1:
@@ -4727,11 +4776,7 @@ def run_crash_recovery(dev: str, root: str, mode: str) -> dict:
         raise AssertionError(f"18b: the {dev} supervisor printed no verdicts (rc {got['rc']}):\n{text[-6000:]}")
     if got["rc"] != 0 or [v["mode"] for v in verdicts] != [mode] or not all(v["ok"] for v in verdicts):
         raise AssertionError(f"18b: the {dev} drills failed (rc {got['rc']}): {json.dumps(verdicts)[:4000]}")
-    reports = {}
-    for fn in sorted(os.listdir(rep_dir)):
-        with open(os.path.join(rep_dir, fn)) as f:
-            reports[fn[:-5]] = json.load(f)
-    return dict(verdicts=verdicts, reports=reports, supervisor_s=got["exit_t"] - got["spawn_t"])
+    return dict(verdicts=verdicts, reports=read_reports(rep_dir), supervisor_s=got["exit_t"] - got["spawn_t"])
 
 
 def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
@@ -4835,6 +4880,242 @@ def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+def run_cli(name: str, *args):
+    """One of the port's operator CLIs as ``python -m``, from the
+    repository root, killed after OBS_CLI_TIMEOUT_S: its CompletedProcess
+    (stdout and stderr apart)."""
+    return subprocess.run([sys.executable, "-m", TOOLS + name, *map(str, args)], capture_output=True, text=True,
+                          timeout=OBS_CLI_TIMEOUT_S, cwd=ROOT, env=_worker_env())
+
+
+def cli_out(p, what: str, rc: int = 0) -> str:
+    """The standard output of a finished CLI, which must have exited `rc`."""
+    if p.returncode != rc:
+        raise AssertionError(f"19: {what} exited {p.returncode}, not {rc}:\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    return p.stdout
+
+
+def run_demo(name: str, root: str, dev: str, *args) -> dict:
+    """One of the port's demos as ``python -m`` (with `args`) on `dev`, its temporary
+    directories and its workers' reports under `root`; it must exit 0:
+    its output, seconds and the reports (`read_reports`)."""
+    rep_dir = os.path.join(root, "reports")
+    got = run_procs({name: ["-m", TOOLS + name, *args, "--device", dev, "--report-dir", rep_dir]}, root, OBS_TIMEOUT_S,
+                    env={"TMPDIR": root})[name]
+    if got["rc"] != 0:
+        raise AssertionError(f"19: {name} exited {got['rc']}:\n{got['out'][-6000:]}")
+    return dict(out=got["out"], s=got["exit_t"] - got["spawn_t"], reports=read_reports(rep_dir))
+
+
+@contextlib.contextmanager
+def tempdir_under(path: str):
+    """While open, this process's temporary directories are made in `path`."""
+    import tempfile
+
+    saved, tempfile.tempdir = tempfile.tempdir, path
+    try:
+        yield
+    finally:
+        tempfile.tempdir = saved
+
+
+def read_step_loop(recs: list, steps: int) -> dict:
+    """A worker's span records read for its step loop (its round.e2e spans
+    of steps below `steps`): the steps' ms, the step in whose window the
+    first peer window was applied (round.delta_apply) or "none in the
+    loop", and, in s from the loop's start, that first apply and the first
+    decode of a peer window off the round thread (the prefetcher); the
+    anchor snapshots' ms (round.snapshot), how many began in the loop, and
+    the sends' count, p50 and max ms (round.gossip_send)."""
+    spans = sorted((r for r in recs if r.get("k") == "span"), key=lambda r: r["m0"])
+    loop = [r for r in spans if r["name"] == "round.e2e" and r.get("step", steps) < steps]
+    if not loop:
+        raise AssertionError("19d: a survivor recorded no round.e2e span of its step loop")
+    t0, t1, round_tid = loop[0]["m0"], loop[-1]["m1"], loop[0]["tid"]
+    applies = [r for r in spans if r["name"] == "round.delta_apply"]
+    in_loop = next((e["step"] for a in applies for e in loop if e["m0"] <= a["m0"] < e["m1"]), None)
+    decode = next((r for r in spans if r["name"] == "round.delta_decode" and r["tid"] != round_tid), None)
+
+    def ms(name):
+        return [(r["m1"] - r["m0"]) * 1e3 for r in spans if r["name"] == name]
+
+    step_ms = [(e["m1"] - e["m0"]) * 1e3 for e in loop]
+    sends = ms("round.gossip_send")
+    return dict(steps=len(loop), loop_s=t1 - t0, step_p50_ms=pct(step_ms, 0.5), step_ms=step_ms,
+                first_window_step=in_loop if in_loop is not None else "none in the loop",
+                first_apply_s=(applies[0]["m0"] - t0) if applies else None,
+                first_prefetch_decode_s=(decode["m0"] - t0) if decode else None,
+                anchor_snapshot_ms=ms("round.snapshot"),
+                snapshots_in_loop=sum(1 for r in spans if r["name"] == "round.snapshot" and t0 <= r["m0"] < t1),
+                gossip_sends=len(sends), gossip_send_p50_ms=pct(sends, 0.5),
+                gossip_send_max_ms=max(sends, default=None))
+
+
+def phase_observability(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 19: the operator's observability tools of
+    antidote_ccrdt_tpu_torch/scripts as subprocesses. (a) obs_dashboard
+    --demo and (b) spans_demo, beside (e)'s law checks; (c) overlap_demo
+    alone, whole on a card (on the CPU its fleets and its digest and
+    counter gates, without the timing bar); (d) phase 18a's crash drill with the span plane and the device
+    observatory on, read by ccrdt_spans merge and attribute, ccrdt_trace
+    summary and ccrdt_devprof churn and watermarks; (e) ccrdt_audit laws on
+    `dev` equal byte for byte to the CPU's, the selftest, and certify and
+    verify over 19b's fleet. Returns the workers' launches (each leg's
+    reports)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from antidote_ccrdt_tpu_torch.obs import spans as obs_spans
+    from antidote_ccrdt_tpu_torch.scripts.elastic_demo import parse_shape
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()  # the workers share the card
+    launches = {n: 0 for n in SOURCES}
+    kernels3 = ("scatter_max_rows_copy", "delta_place", "sort_slots")
+
+    def add(reports, what):
+        got = {n: 0 for n in kernels3}
+        for rep in reports.values():
+            for n, v in rep["launches"].items():
+                launches[n] += v
+                got[n] += v
+        if on_card:
+            require_launches(got, kernels3, what)
+        return got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 19a, 19b and 19e's law checks at once: none of them gates a time.
+        root, b_root = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        os.makedirs(root)
+        os.makedirs(b_root)
+        t_laws = time.perf_counter()
+        with ThreadPoolExecutor(5) as pool:
+            fa = pool.submit(run_demo, "obs_dashboard", root, dev, "--demo")
+            fb = pool.submit(run_demo, "spans_demo", b_root, dev)
+            f_laws = {where: pool.submit(run_cli, "ccrdt_audit", "laws", "--device", where, "--json")
+                      for where in dict.fromkeys((dev, "cpu"))}
+            f_self = pool.submit(run_cli, "ccrdt_audit", "laws", "--selftest", "--device", dev)
+            laws = {where: cli_out(f.result(), f"19e laws --device {where}") for where, f in f_laws.items()}
+            selftest = cli_out(f_self.result(), "19e laws --selftest")
+            laws_s = time.perf_counter() - t_laws
+            a, b = fa.result(), fb.result()
+
+        # 19a: the dashboard's demo, its scrape and complete-path checks.
+        ok = [ln for ln in a["out"].splitlines() if ln.startswith("OK: ")]
+        log("19a dashboard", card=card, demo_s=a["s"], ok=ok[-1] if ok else None,
+            launches=add(a["reports"], "19a's workers"))
+
+        # 19b: the span plane's demo and its gates.
+        (fleet_dir,) = [os.path.join(b_root, d) for d in os.listdir(b_root) if d.startswith("spans-demo-")]
+        by_member = obs_spans.scan_dir(os.path.join(fleet_dir, "obs"))
+        att = obs_spans.attribute(by_member)
+        log("19b spans", card=card, demo_s=b["s"], coverage_p50=att["fleet"]["coverage_p50"],
+            rounds=att["fleet"]["rounds"], members=sorted(att["members"]),
+            offset_edges=sum(len(v) for v in obs_spans.clock_offsets(by_member).values()),
+            e2e_p50_ms=att["fleet"]["e2e_ms_p50"], gap_p50_ms=att["fleet"]["gap_ms_p50"],
+            phase_p50_ms={m: row["phases_ms_p50"] for m, row in att["members"].items()},
+            launches=add(b["reports"], "19b's workers"))
+
+        # 19c: serial against overlapped rounds.
+        root = os.path.join(tmp, "c")
+        os.makedirs(root)
+        if on_card:  # the whole demo, its 0.30 bar included
+            c = run_demo("overlap_demo", root, dev)
+            fleets = [dict(e2e_ms_p50=float(f[1]), gap_ms_p50=float(f[4])) for f in SPANS_FLEET_LINE.findall(c["out"])]
+            red = re.search(r"\(([+-][\d.]+)% vs the", c["out"])
+            c.update(reduction_pct=float(red.group(1)) if red else None, bar_held=True)
+        else:  # the demo's fleets and its digest and counter gates
+            from antidote_ccrdt_tpu_torch.scripts import overlap_demo
+
+            t_c = time.perf_counter()
+            rep_dir = os.path.join(root, "reports")
+            with tempdir_under(root):
+                runs = overlap_demo.run_arms(dev, rep_dir)
+            if overlap_demo.check_convergence(runs, dev) != 0:
+                raise AssertionError("19c: the overlap fleets' digests or counters failed")
+            fleets = [runs[label][0]["fleet"] for label in ("serial", "overlap")]
+            c = dict(s=time.perf_counter() - t_c, reports=read_reports(rep_dir), reduction_pct=None, bar_held=False)
+        log("19c overlap", card=card, demo_s=c["s"], reduction_pct=c["reduction_pct"], bar_held=c["bar_held"],
+            e2e_p50_ms=dict(zip(("serial", "overlap"), (f["e2e_ms_p50"] for f in fleets))),
+            gap_p50_ms=dict(zip(("serial", "overlap"), (f["gap_ms_p50"] for f in fleets))),
+            launches=add(c["reports"], "19c's workers"))
+
+        # 19d: phase 18a's drill, its step loop read through the spans.
+        root = os.path.join(tmp, "d")
+        obs = os.path.join(root, "obs")
+        os.makedirs(root)
+        slow = ["--delta", "--timeout", str(ELASTIC_TIMEOUT), "--hb-interval", str(ELASTIC_HB),
+                "--settle-s", str(ELASTIC_SETTLE_S)]
+        d = run_drill_fleet(torch, dev, "antidote_ccrdt_tpu_torch.scripts.elastic_demo", root, ELASTIC_SHAPE, slow,
+                            hold=True, env={"CCRDT_OBS_DIR": obs, "CCRDT_SPANS": "1", "CCRDT_DEVPROF": "1"})
+        survivors = sorted(d["reports"])
+        d_launches = add(d["reports"], "19d's survivors")
+        trace = os.path.join(root, "spans_trace.json")
+        merge_out = cli_out(run_cli("ccrdt_spans", "merge", obs, "-o", trace), "19d ccrdt_spans merge")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        lanes = {e["pid"]: e["args"]["name"] for e in events if e.get("ph") == "M" and e.get("name") == "process_name"}
+        per_lane = {m: sum(1 for e in events if e.get("ph") == "X" and lanes.get(e.get("pid")) == m) for m in survivors}
+        if not all(per_lane.values()):
+            raise AssertionError(f"19d: the merged trace's spans by survivor {per_lane}")
+        d_att = json.loads(cli_out(run_cli("ccrdt_spans", "attribute", obs, "--json"), "19d ccrdt_spans attribute"))
+        summary = json.loads(cli_out(run_cli("ccrdt_trace", "summary", obs, "--json"), "19d ccrdt_trace summary"))
+        # A compile is a kernel's first load: on the CPU none happens.
+        churn = run_cli("ccrdt_devprof", "churn", obs, "--json")
+        if on_card:
+            churn_rows = json.loads(cli_out(churn, "19d ccrdt_devprof churn"))
+            if not churn_rows:
+                raise AssertionError("19d: ccrdt_devprof churn listed no site")
+        else:
+            cli_out(churn, "19d ccrdt_devprof churn on the CPU", rc=1)
+            if "no devprof.compile events" not in churn.stderr:
+                raise AssertionError(f"19d: churn on the CPU said {churn.stderr[-2000:]}")
+            churn_rows = []
+        marks = cli_out(run_cli("ccrdt_devprof", "watermarks", root), "19d ccrdt_devprof watermarks")
+        spill = obs_spans.scan_dir(obs)
+        log("19d elastic spans", card=card, shape=ELASTIC_SHAPE, fleet_s=d["fleet_s"], survivors=survivors,
+            merge=merge_out.splitlines()[:3], merged_spans_by_survivor=per_lane,
+            coverage_p50=d_att["fleet"]["coverage_p50"], e2e_p50_ms=d_att["fleet"]["e2e_ms_p50"],
+            loop={m: dict(read_step_loop(spill[m], ELASTIC_STEPS), phase_p50_ms=d_att["members"][m]["phases_ms_p50"])
+                  for m in survivors},
+            report_step_p50_ms={m: pct(r["step_ms"], 0.5) for m, r in d["reports"].items()},
+            trace=dict(deltas_traced=summary["deltas_traced"], complete_paths=summary["complete_paths"],
+                       apply_samples=summary.get("apply_samples"), never_applied=len(summary.get("never_applied", [])),
+                       pairs_p50_ms={k: v["p50_ms"] for k, v in summary.get("pairs", {}).items()}),
+            churn=churn_rows, watermarks=marks.splitlines()[1:], launches=d_launches, converged=True)
+        del d
+        gc.collect()
+
+        # 19e: the law checker on the card and the CPU (run beside 19a and
+        # 19b), the certificate of 19b's fleet.
+        if laws[dev] != laws["cpu"]:
+            raise AssertionError(f"19e: the law reports differ:\n{laws[dev][:2000]}\n{laws['cpu'][:2000]}")
+        law_doc = json.loads(laws[dev])
+        if not law_doc["ok"]:
+            raise AssertionError(f"19e: a law failed: {laws[dev][:4000]}")
+        if "CAUGHT" not in selftest:
+            raise AssertionError(f"19e: {selftest}")
+        t_e = time.perf_counter()
+        ref = gossip_reference(torch, dev, parse_shape("demo"))
+        crc = zlib.crc32(json.dumps(ref, sort_keys=True).encode("utf-8")) & 0xFFFFFFFF
+        cert = os.path.join(b_root, "cert.json")
+        cert_doc = json.loads(cli_out(run_cli("ccrdt_audit", "certify", os.path.join(fleet_dir, "obs"), "--final-dir",
+                                              fleet_dir, "--reference", "%08x" % crc, "--out", cert, "--json"),
+                                      "19e certify"))
+        if not (cert_doc["ok"] and cert_doc["checks"].get("matches_reference")):
+            raise AssertionError(f"19e: the certificate {json.dumps(cert_doc)[:4000]}")
+        verify = json.loads(cli_out(run_cli("ccrdt_audit", "verify", cert, "--json"), "19e verify"))
+        log("19e audit", card=card, law_types=law_doc["n_types"], law_checks=law_doc["n_law_checks"],
+            pairs=law_doc["pairs"], card_equals_cpu=on_card, selftest_caught=True,
+            certificate=dict(checks=cert_doc["checks"], flight_logs=cert_doc["n_flight_logs"],
+                             signature=cert_doc["signature"][:16]),
+            verify=verify, laws_s=laws_s, certify_s=time.perf_counter() - t_e, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -4872,6 +5153,7 @@ def main() -> int:
     mesh = phase_mesh(torch, card)
     multihost = phase_multihost(torch, card)
     elastic = phase_elastic(torch, card)
+    observability = phase_observability(torch, card)
     # `launches` is the count of the path that drives the kernel first
     # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
     # path's own count, each read from 0, is in `launches_by_path`.
@@ -4882,7 +5164,8 @@ def main() -> int:
                       ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
                       ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged),
                       ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh),
-                      ("multihost (phase 17)", multihost), ("elastic workers (phase 18)", elastic)):
+                      ("multihost (phase 17)", multihost), ("elastic workers (phase 18)", elastic),
+                      ("observability fleets (phase 19)", observability)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

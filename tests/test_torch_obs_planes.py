@@ -11,9 +11,10 @@ against the JAX package's.
   which needs a jit recompile per round: the port's compile is a
   kernel's first load, which never happens on the CPU. The attribution
   it checks is held below with a build cache that grows.
-* ``tests/test_rtrace.py`` imports the serve and bridge planes (not
-  ported) at its top and is not re-run; the trace docs, wire encodings,
-  exemplars and attribution it relies on are held against JAX's below.
+* ``tests/test_rtrace.py`` runs through the port in
+  ``tests/test_torch_bridge.py`` (it imports the serve and bridge planes);
+  the trace docs, wire encodings, exemplars and attribution it relies on
+  are also held against JAX's below.
 """
 
 import pytest
