@@ -35,14 +35,16 @@ Container helpers for the two stdlib structures reference states embed:
   encode always emits the map form (v2), which ``sets:is_element/2`` et al.
   accept on any modern OTP.
 
-A copy of ``antidote_ccrdt_tpu/core/etf.py``.
+A copy of ``antidote_ccrdt_tpu/core/etf.py``, with `encode_chunks` added: the
+same bytes as buffers, large binaries not copied (socket writes of big
+frames).
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Any, Iterable, List, Tuple
+from typing import Any, Iterable, List, Optional, Tuple
 
 VERSION_MAGIC = 131
 
@@ -154,10 +156,10 @@ def _enc_int(n: int, out: bytearray) -> None:
         out += b
 
 
-def _enc(term: Any, out: bytearray) -> None:
+def _enc(term: Any, out: bytearray, chunks: Optional[List[bytes]] = None) -> None:
     if isinstance(term, bool):
         # Erlang booleans are the atoms true/false.
-        _enc(Atom("true" if term else "false"), out)
+        _enc(Atom("true" if term else "false"), out, chunks)
     elif isinstance(term, Atom):
         b = term.encode("utf-8")
         if len(b) <= 255:
@@ -176,7 +178,12 @@ def _enc(term: Any, out: bytearray) -> None:
         b = term.encode("utf-8") if isinstance(term, str) else term
         out.append(BINARY_EXT)
         out += struct.pack(">I", len(b))
-        out += b
+        if chunks is not None and len(b) >= CHUNK_MIN:
+            chunks.append(bytes(out))  # the bytes so far, then the binary itself
+            out.clear()
+            chunks.append(b)
+        else:
+            out += b
     elif isinstance(term, tuple):
         if len(term) <= 255:
             out.append(SMALL_TUPLE_EXT)
@@ -185,7 +192,7 @@ def _enc(term: Any, out: bytearray) -> None:
             out.append(LARGE_TUPLE_EXT)
             out += struct.pack(">I", len(term))
         for x in term:
-            _enc(x, out)
+            _enc(x, out, chunks)
     elif isinstance(term, list):
         if not term:
             out.append(NIL_EXT)
@@ -200,7 +207,7 @@ def _enc(term: Any, out: bytearray) -> None:
         out.append(LIST_EXT)
         out += struct.pack(">I", len(term))
         for x in term:
-            _enc(x, out)
+            _enc(x, out, chunks)
         out.append(NIL_EXT)
     elif isinstance(term, dict):
         out.append(MAP_EXT)
@@ -209,8 +216,8 @@ def _enc(term: Any, out: bytearray) -> None:
         # <=32 keys serialize). For bigger maps OTP uses hash order, which
         # we cannot (and need not) reproduce — any order decodes fine.
         for k in sorted(term.keys(), key=_term_sort_key):
-            _enc(k, out)
-            _enc(term[k], out)
+            _enc(k, out, chunks)
+            _enc(term[k], out, chunks)
     else:
         raise TypeError(f"cannot encode {type(term)!r} as an Erlang term")
 
@@ -224,6 +231,21 @@ def encode(term: Any, compressed: bool = False) -> bytes:
         if len(z) + 5 < len(out):
             return bytes([VERSION_MAGIC, COMPRESSED]) + struct.pack(">I", len(out)) + z
     return bytes([VERSION_MAGIC]) + bytes(out)
+
+
+# Binaries this large stay the caller's objects in `encode_chunks`.
+CHUNK_MIN = 1 << 20
+
+
+def encode_chunks(term: Any) -> List[bytes]:
+    """`encode(term)` as buffers whose concatenation is its bytes; each
+    binary of at least CHUNK_MIN bytes is one of them, not a copy."""
+    out = bytearray([VERSION_MAGIC])
+    chunks: List[bytes] = []
+    _enc(term, out, chunks)
+    if out:
+        chunks.append(bytes(out))
+    return chunks
 
 
 # --- decode ---------------------------------------------------------------

@@ -65,6 +65,23 @@ Frames are ENCODED AT SEND TIME (the queue holds builders, not bytes) so
 piggybacked ages are measured when the frame actually leaves — a frame
 that sat queued behind a dead link must not deliver stale "I heard X
 recently" claims.
+
+Port of ``antidote_ccrdt_tpu/net/tcp.py``: the same frames, caches,
+counters and events. One difference: a psnap asked for with
+`request_psnaps` and not yet answered is waited for by `fetch_psnap`, at
+most PSNAP_WAIT_S, instead of reading whatever older psnap the cache
+holds. The JAX transport leaves this to thread timing, and its slower
+caller usually lets the reply land first; the port's fast caller read
+the stale psnap, asked again, and so moved each divergent partition
+twice (scripts/partition_demo.py's resync). The price: a peer that dies
+between the request and its reply holds each such `fetch_psnap` for
+PSNAP_WAIT_S, after which it reads the cache as JAX's does.
+
+A frame carrying a binary of at least ``etf.CHUNK_MIN`` bytes is written
+from its parts (`etf.encode_chunks`, ``sendmsg``; the send timeout bounds
+the whole frame, as it bounds ``sendall``) and read into one buffer of its
+full size, so a 100 MB delta is not copied a dozen times on its way (the
+bytes on the wire are the same).
 """
 
 from __future__ import annotations
@@ -77,7 +94,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ..bridge.protocol import pack_frame, unpack_frames
+from ..bridge.protocol import MAX_FRAME, pack_frame, unpack_frames
 from ..core import etf
 from ..core.etf import Atom
 from ..obs import events as obs_events
@@ -302,6 +319,54 @@ def probe_clock(
                     return member, t2 - (t1 + t3) / 2.0, t3 - t1
 
 
+class _Chunks:
+    """A frame as the buffers to write in order (`etf.encode_chunks`);
+    `len` is its size on the wire."""
+
+    __slots__ = ("parts", "nbytes")
+
+    def __init__(self, parts: List[bytes]):
+        self.parts = parts
+        self.nbytes = sum(len(x) for x in parts)
+
+    def __len__(self) -> int:
+        return self.nbytes
+
+
+def _send_frame(sock: socket.socket, frame) -> None:
+    """`sock.sendall` of a frame, bytes or `_Chunks`. As with `sendall`,
+    the socket's timeout bounds the whole send: a `_Chunks` frame not out
+    by then raises `socket.timeout`."""
+    if not isinstance(frame, _Chunks):
+        sock.sendall(frame)
+        return
+    timeout = sock.gettimeout()
+    deadline = None if timeout is None else time.monotonic() + timeout
+    views = [memoryview(x) for x in frame.parts if len(x)]
+    try:
+        while views:
+            if deadline is not None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise socket.timeout("timed out")
+                sock.settimeout(left)
+            sent = sock.sendmsg(views)
+            while sent and sent >= len(views[0]):
+                sent -= len(views.pop(0))
+            if sent:
+                views[0] = views[0][sent:]
+    finally:
+        sock.settimeout(timeout)
+
+
+# Seconds `fetch_psnap` waits for the reply to a psnap request.
+PSNAP_WAIT_S = 1.0
+
+# A frame whose missing part is this large is read straight into one
+# buffer of its size (`TcpTransport._read_rest`).
+_BIG_READ = 1 << 20
+
+
 class _PeerLink:
     """One outgoing connection: bounded queue + sender thread with
     backoff. `enqueue` never blocks the caller; the queue policy keeps
@@ -456,7 +521,7 @@ class _PeerLink:
                         dropped = True
                         self.metrics.count("net.fault_drops")
                     else:
-                        self._sock.sendall(frame)
+                        _send_frame(self._sock, frame)
                 except OSError:
                     # close() may have nulled _sock concurrently (it owns
                     # the socket teardown); swap-then-close so both
@@ -550,6 +615,10 @@ class TcpTransport:
         # divergent partitions ({psnap_req} -> {psnap}).
         self._digs: Dict[str, bytes] = {}
         self._psnaps: Dict[str, Dict[int, bytes]] = {}
+        # (member, part) -> deadline of a psnap request whose reply has
+        # not landed; `fetch_psnap` waits on `_psnap_landed` until then.
+        self._psnap_asked: Dict[Tuple[str, int], float] = {}
+        self._psnap_landed = threading.Condition(self._lock)
         # Serve plane: `{query, Payload}` frames are answered by this
         # handler (bytes -> bytes) when a plane is installed; None means
         # this worker does not serve reads (error reply, never a hang).
@@ -714,11 +783,18 @@ class TcpTransport:
 
     # -- frame builders (called at send time, see module docstring) --------
 
-    def _wire(self, term, link: _PeerLink) -> bytes:
+    def _wire(self, term, link: _PeerLink):
         codec = self._link_codec(link)
+        chunks = etf.encode_chunks(term)
+        if len(chunks) > 1 and codec in (None, CODEC_RAW):
+            # A large binary: the frame's head, then the parts as they are.
+            tag = b"" if codec is None else bytes([CODEC_RAW])
+            n = len(tag) + sum(len(x) for x in chunks)
+            return _Chunks([struct.pack(">I", n) + tag, *chunks])
+        payload = b"".join(chunks)
         if codec is None:
-            return pack_frame(term)
-        return encode_frame(etf.encode(term), codec, self.metrics)
+            return struct.pack(">I", len(payload)) + payload
+        return encode_frame(payload, codec, self.metrics)
 
     def _heard_term(self) -> Dict[bytes, float]:
         return {
@@ -818,6 +894,9 @@ class TcpTransport:
                     return
                 buf.extend(data)
                 self.metrics.count("net.bytes_recv", len(data))
+                buf = self._read_rest(conn, buf)
+                if buf is None:
+                    return
                 for term in unpack_coded_frames(buf):
                     if obs_spans.ACTIVE:
                         # Reader-thread span: frame decode + cache write
@@ -836,6 +915,28 @@ class TcpTransport:
                 conn.close()
             except OSError:
                 pass
+
+    def _read_rest(self, conn: socket.socket, buf: bytearray) -> Optional[bytearray]:
+        """`buf` with the rest of its first frame read into it when at
+        least _BIG_READ bytes of that frame are missing: one buffer of the
+        frame's size, filled by ``recv_into`` (None if the peer closed).
+        Otherwise `buf` as it is."""
+        if len(buf) < 4:
+            return buf
+        (n,) = struct.unpack(">I", bytes(buf[:4]))
+        if n > MAX_FRAME or 4 + n - len(buf) < _BIG_READ:
+            return buf  # the unpacker refuses an oversize frame
+        whole = bytearray(4 + n)
+        got = len(buf)
+        whole[:got] = buf
+        with memoryview(whole) as view:
+            while got < len(whole):
+                k = conn.recv_into(view[got:])
+                if not k:
+                    return None
+                self.metrics.count("net.bytes_recv", k)
+                got += k
+        return whole
 
     def _store_snap(self, m: str, blob: bytes) -> bool:
         """Anchor cache write; True when the blob was accepted. Ordered
@@ -896,6 +997,8 @@ class TcpTransport:
 
     def _store_psnap(self, m: str, part: int, blob: bytes) -> bool:
         with self._lock:
+            if self._psnap_asked.pop((m, part), None) is not None:
+                self._psnap_landed.notify_all()
             window = self._psnaps.setdefault(m, {})
             old = window.get(part)
             new_seq, old_seq = self._ccpt_seq(blob), (
@@ -1441,7 +1544,14 @@ class TcpTransport:
             self._psnaps.setdefault(self.member, {})[int(part)] = blob
 
     def fetch_psnap(self, member: str, part: int) -> Optional[bytes]:
+        key = (member, int(part))
         with self._lock:
+            while key in self._psnap_asked:
+                left = self._psnap_asked[key] - time.monotonic()
+                if left <= 0:
+                    del self._psnap_asked[key]  # no reply: read the cache
+                    break
+                self._psnap_landed.wait(left)
             return self._psnaps.get(member, {}).get(int(part))
 
     def request_psnaps(self, member: str, parts: List[int]) -> None:
@@ -1451,6 +1561,10 @@ class TcpTransport:
         if link is None:
             return  # unreachable peer: caller falls back to full resync
         self.metrics.count("net.psnap_reqs_sent")
+        deadline = time.monotonic() + PSNAP_WAIT_S
+        with self._lock:
+            for p in parts:
+                self._psnap_asked[(member, int(p))] = deadline
         link.enqueue(
             "psnap_req",  # no special queue policy: tiny and re-askable
             self._psnap_req_frame([int(p) for p in parts], link),

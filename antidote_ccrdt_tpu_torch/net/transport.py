@@ -22,6 +22,10 @@ file mtime is only the fallback for empty/foreign heartbeat files,
 because mtime is flaky on coarse-granularity or object-store-backed
 filesystems (the first GossipStore relied on mtime alone). Socket and
 sim transports track liveness via `net.membership` instead.
+
+Port of ``antidote_ccrdt_tpu/net/transport.py``: the same blobs. An anchor
+of the partition plane deflates its psnaps PSNAP_THREADS at a time on
+threads (`GossipNode.publish_partitioned`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import os
 import struct
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional, Protocol, Tuple, runtime_checkable
 
 from ..obs import events as obs_events
@@ -46,6 +51,12 @@ from ..utils.metrics import Metrics
 # reads None) and falls back to the snapshot anchor — backward interop
 # without a wire-protocol version bump. A range-aware receiver strips the
 # header and treats a bare payload as the degenerate frame [seq..seq].
+
+# An anchor's psnaps without a pager (`GossipNode.publish_partitioned`)
+# are built this many at a time and deflated side by side on as many
+# threads (zlib lets go of the interpreter): the same blobs, published in
+# the same order, at most this many raw payloads held at once.
+PSNAP_THREADS = 4
 
 FRAME_MAGIC = b"CCRF"
 _FRAME_HDR = len(FRAME_MAGIC) + 16  # magic + u64 lo + u64 hi
@@ -676,16 +687,24 @@ class GossipNode:
                     self.metrics.count(f"mesh.shard{shard:02d}.psnap_publishes")
                     pub_ps(part, blob)
             changed = []
-        for part in changed:
-            if pager is not None:
-                blob = pager.psnap_blob(state, seq, part)
-            else:
-                payload = serial.dumps_dense(
-                    f"{name}_psnap", pt.restrict_psnap(dense, state, part, P)
-                )
-                blob = pt.encode_psnap_blob(seq, part, payload)
-            self.metrics.count("net.psnap_publishes")
-            pub_ps(part, blob)
+        with ThreadPoolExecutor(PSNAP_THREADS) as pool:
+            for lo in range(0, len(changed), PSNAP_THREADS):
+                group = changed[lo : lo + PSNAP_THREADS]
+                if pager is not None:
+                    blobs = [pager.psnap_blob(state, seq, p) for p in group]
+                else:
+                    payloads = [
+                        serial.dumps_dense(
+                            f"{name}_psnap", pt.restrict_psnap(dense, state, p, P)
+                        )
+                        for p in group
+                    ]
+                    blobs = pool.map(
+                        pt.encode_psnap_blob, [seq] * len(group), group, payloads
+                    )
+                for part, blob in zip(group, blobs):
+                    self.metrics.count("net.psnap_publishes")
+                    pub_ps(part, blob)
         dig_blob = pt.encode_digest_blob(seq, vec)
         self.metrics.count("net.dig_publishes")
         self.metrics.count("net.dig_bytes", len(dig_blob))

@@ -96,6 +96,10 @@ def unpack_coded_frames(buf: bytearray):
             raise ValueError(f"frame of {n} bytes exceeds limit")
         if len(buf) < 4 + n:
             return
-        body = bytes(buf[4 : 4 + n])
+        with memoryview(buf) as view:
+            if n > 1 and buf[4] == CODEC_RAW:
+                payload = bytes(view[5 : 4 + n])  # one copy of a raw body
+            else:
+                payload = decode_body(bytes(view[4 : 4 + n]))
         del buf[: 4 + n]
-        yield etf.decode(decode_body(body))
+        yield etf.decode(payload)

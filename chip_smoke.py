@@ -245,9 +245,31 @@ Phases, each printing one line (any failure exits non-zero):
    reference; (a), (b) and (e)'s law checks run at once, (c) and (d)
    alone; every leg's worker reports counted, each leg must launch K1c,
    K2 and K3;
-20. the kernels line (launches on each path that drives a kernel, phases
-   9-19 included; phase 17's are its workers' and its sites', not the
-   reference's; phases 18 and 19 their card workers'), then the ok line.
+20. anti-entropy gates: (a) a TCP probe (1, 130 and 225 MB deltas between
+   two ``TcpTransport``s, landed byte for byte), then
+   ``partition_demo.run_drill`` in this process at R = D = 32, 40 000 ids (225 MB a member, the widest anchor under
+   ``MAX_FRAME``), K = 100, M = 4, 32 768 uniform adds and 2 048 removals
+   a replica and step, P = 8: 3 ``TcpTransport`` members, w2 out of the
+   gossip for steps 4-8 while every op hits one partition p*, then the
+   whole-snapshot and the digest-and-psnap repair from the same state;
+   all seven of the demo's checks (at least 5x fewer repair bytes,
+   bit-identical repair digests, the fleet's digest vectors agreeing and
+   equal to the sequential reference with every replica owned,
+   divergence confined to p* and meta, resyncs counted, no wasted
+   psnap), every K1c, K2 and K3 call held against its plain version, and
+   the seconds from each peer's last pre-outage delta landing at w2 to
+   w2's sweep logged; the drill at the demo's width on the CPU and the card, equal reports but
+   for the counters that hang on thread timing; (b) ``topo_demo`` whole
+   (two legs of six ``net_gossip_demo`` workers at elastic_demo's width,
+   two zones, the za anchor SIGKILLed in the first): every survivor at
+   the reference in both legs, cross-zone frames and relays, a failover
+   event off the victim, at most half the full mesh's cross-zone sends,
+   each worker's first K1c, K2 and K3 call equal to the plain version;
+   each of (a) and (b) must launch K1c, K2 and K3;
+21. the kernels line (launches on each path that drives a kernel, phases
+   9-20 included; phase 17's are its workers' and its sites', not the
+   reference's; phases 18-20 their card workers' and 20a's drill), then
+   the ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -366,9 +388,10 @@ PIPE_MEMBERS, PIPE_STEPS, PIPE_TAIL = ("p0", "p1", "p2"), 4, 20
 # replica and step, seeded per (seed, step, replica)), `ensure_resident`
 # before every apply, hit counters reset after step 2, a tail of at most
 # 80 rounds; the demo's gates. Replica rows split over the workers as
-# phase 12 splits them. Cut from the demo's 10 steps to 6 for time: each
-# step of each arm publishes and sweeps 563 MB anchors on the host.
-WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w2"), 6, 2, 80, 32, 2.2, 7
+# phase 12 splits them. Cut from the demo's 10 steps to 4 for time: each
+# step of each arm publishes and sweeps 563 MB anchors on the host; the
+# hit rates count the accesses after step 2's warm-up.
+WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w2"), 4, 2, 80, 32, 2.2, 7
 WS_B, WS_BR, WS_MIN_HIT, WS_MIN_RATIO = 96, 8, 0.9, 10.0
 # The reduced widths (R, I, B, Br) of the CPU == card runs of 14a and 14c.
 OVERLAP_SMALL, WS_SMALL = GOSSIP_SMALL, (4, 4_096, WS_B, WS_BR)
@@ -450,6 +473,93 @@ TOOLS = "antidote_ccrdt_tpu_torch.scripts."
 # A fleet line of obs.spans.format_report (the demos print one a fleet).
 SPANS_FLEET_LINE = re.compile(r"rounds=(\d+) e2e p50 ([\d.]+)ms \| serial ([\d.]+)ms overlappable ([\d.]+)ms "
                               r"gap ([\d.]+)ms \(coverage ([\d.]+)%\)")
+# Phase 20, the anti-entropy gates of antidote_ccrdt_tpu_torch/scripts/. 20a:
+# partition_demo's drill in this process (3 TcpTransport members, AE_PARTS
+# partitions, w2 out of the gossip for steps 4-8 while every op hits one
+# partition) at AE_SHAPE: R = D = 32, 40 000 ids (the widest anchor under
+# MAX_FRAME, as phase 12's TCP pair: 225 MB a member), K = 100, M = 4,
+# 32 768 uniform adds and 2 048 removals a replica and step; the
+# transports' send timeout AE_SEND_TIMEOUT (the demo's 2 s is for its
+# 86 kB anchors). Then the drill at the demo's width on the CPU and on the
+# card. 20b: topo_demo whole (two legs of six net_gossip_demo workers at
+# elastic_demo's width, the za anchor killed in the first), its workers'
+# failure detector at TOPO_TIMEOUT s (the demo's own). topo_demo is
+# killed after AE_TIMEOUT_S.
+AE_SHAPE, AE_PARTS, AE_SEND_TIMEOUT = "32,40000,32768,2048,4,100", 8, 120.0
+TOPO_TIMEOUT, AE_TIMEOUT_S = 0.5, 600.0
+# 20a's TCP probe: a delta of each size (MB) sent between two TcpTransports
+# on 127.0.0.1 (1 MB opens the link; 130 MB is the drill's last
+# pre-outage delta, 225 MB its anchor).
+AE_PROBE_MB = (1, 130, 225)
+
+
+def tcp_landing_s(tcp) -> dict:
+    """{MB: seconds from `publish_delta` to the blob in the peer's cache}
+    for each size of AE_PROBE_MB, through a `net.tcp` module (this
+    package's, or another checkout's); each blob is checked byte for
+    byte."""
+    a = tcp.TcpTransport("a", send_timeout=AE_SEND_TIMEOUT)
+    b = tcp.TcpTransport("b", send_timeout=AE_SEND_TIMEOUT)
+    try:
+        a.add_peer("b", b.address)
+        b.add_peer("a", a.address)
+        out = {}
+        for seq, mb in enumerate(AE_PROBE_MB):
+            blob = os.urandom(mb * 1_000_000)
+            t0 = time.perf_counter()
+            a.publish_delta(seq, blob, keep=2)
+            while seq not in b.delta_seqs("a"):
+                if time.perf_counter() - t0 > AE_SEND_TIMEOUT:
+                    raise AssertionError(f"the probe's {mb} MB delta did not land in {AE_SEND_TIMEOUT} s")
+                time.sleep(0.0005)
+            out[mb] = time.perf_counter() - t0
+            if b.fetch_delta("a", seq) != blob:
+                raise AssertionError(f"the probe's {mb} MB delta landed changed")
+        return out
+    finally:
+        a.close()
+        b.close()
+
+
+@contextlib.contextmanager
+def delta_landings_and_sweeps():
+    """Watches partition_demo's drill, changing nothing it does: yields
+    {"landed": {(member, origin, seq): t}, "sweeps": {member: [t, ...]}},
+    when each delta reached each member's cache and when each of a
+    member's sweeps began (perf_counter)."""
+    from antidote_ccrdt_tpu_torch.net.tcp import TcpTransport
+    from antidote_ccrdt_tpu_torch.parallel import elastic
+
+    seen = {"landed": {}, "sweeps": {}}
+    store0, sweep0 = TcpTransport._store_delta, elastic.sweep_deltas
+
+    def store(self, m, seq, keep, blob):
+        ok = store0(self, m, seq, keep, blob)
+        seen["landed"].setdefault((self.member, m, int(seq)), time.perf_counter())
+        return ok
+
+    def sweep(store_, *args, **kw):
+        seen["sweeps"].setdefault(store_.member, []).append(time.perf_counter())
+        return sweep0(store_, *args, **kw)
+
+    TcpTransport._store_delta, elastic.sweep_deltas = store, sweep
+    try:
+        yield seen
+    finally:
+        TcpTransport._store_delta, elastic.sweep_deltas = store0, sweep0
+
+
+def pre_outage_margin_s(seen: dict, lo: int) -> dict:
+    """{peer: seconds from its step lo-1 delta landing at w2 to w2's last
+    sweep before the outage} (negative: the sweep came first; None: it
+    never landed). A member publishes once a step, so that delta's seq is
+    lo - 1."""
+    t_sweep = seen["sweeps"]["w2"][lo - 1]
+    out = {}
+    for peer in ("w0", "w1"):
+        t = seen["landed"].get(("w2", peer, lo - 1))
+        out[peer] = None if t is None else t_sweep - t
+    return out
 
 
 # Phase 4's merge rates, read again beside phase 15's wire rates.
@@ -5116,6 +5226,130 @@ def phase_observability(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+def phase_antientropy(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 20: the anti-entropy gates. (a) the TCP probe, then
+    partition_demo.run_drill in this process at AE_SHAPE with every K1c,
+    K2 and K3 call held against its plain version: all seven of the demo's
+    checks, and w2's pre-outage margin logged; then the drill at
+    the demo's width on the CPU and on `dev`, equal reports but for the
+    counters that hang on thread timing. (b) topo_demo whole as a
+    subprocess on `dev` with --hold: every gate of the demo, each worker's
+    first K1c, K2 and K3 calls equal to the plain versions. Returns the
+    launches of 20a's drill and of 20b's workers."""
+    import tempfile
+
+    from antidote_ccrdt_tpu_torch.scripts import partition_demo
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import launch_counts
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    launches = {n: 0 for n in SOURCES}
+    kernels3 = ("scatter_max_rows_copy", "delta_place", "sort_slots")
+    kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
+
+    # 20a: the TCP probe, then the partition drill at 40 000 ids, every
+    # kernel call held, w2's last sweep before the outage timed against
+    # its peers' deltas landing.
+    from antidote_ccrdt_tpu_torch.net import tcp
+
+    probe_s = tcp_landing_s(tcp)
+    log("20a tcp probe", card=card, landed_s=probe_s, send_timeout_s=AE_SEND_TIMEOUT)
+    geo = partition_demo.parse_shape(AE_SHAPE)
+    held = {}
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with held_against_plain(torch, held), delta_landings_and_sweeps() as seen:
+        rep = partition_demo.run_drill(dev, geo, AE_PARTS, AE_SEND_TIMEOUT)
+    drill_s = time.perf_counter() - t0
+    margin_s = pre_outage_margin_s(seen, partition_demo.OUTAGE_LO)
+    got = _since(before)
+    if not rep["pass"]:
+        raise AssertionError(f"20a: the partition drill failed {[k for k, ok in rep['checks'].items() if not ok]}: "
+                             f"{json.dumps(rep)[:4000]}")
+    held_calls = {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in kernels3}
+    if on_card:
+        require_launches(got, kernels3, "20a's drill")
+        if held_calls != {n: got[n] for n in kernels3}:
+            raise AssertionError(f"20a launched {got}, of which held against the plain versions {held_calls}")
+    for n, v in got.items():
+        launches[n] += v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    counters = rep["counters_w2"]
+    log("20a partition drill", card=card, shape=AE_SHAPE, geometry=rep["geometry"], partitions=AE_PARTS,
+        members=list(partition_demo.MEMBERS), owned=partition_demo.owned_replicas(geo.R),
+        whole_resync_bytes=rep["whole_resync_bytes"], partial_resync_bytes=rep["partial_resync_bytes"],
+        bytes_ratio=rep["bytes_ratio"], min_ratio=rep["min_ratio"], p_star=rep["p_star"],
+        p_star_ids=rep["p_star_ids"], divergent_parts=rep["divergent_parts"],
+        partition_resyncs=counters.get("net.partition_resyncs", 0), psnap_fetches=counters.get("net.psnap_fetches", 0),
+        psnap_wasted=counters.get("net.psnap_wasted", 0), checks=rep["checks"], counters_w2=counters,
+        drill_s=drill_s, drill_s_includes="every K1c, K2 and K3 call's plain version", peak_mem_gb=peak_gb,
+        pre_outage_margin_s=margin_s,
+        launches=got, held_against_plain=held)
+    del rep
+    gc.collect()
+
+    # 20a at the demo's width: the CPU's plain versions against the card.
+    small = {d: partition_demo.run_drill(d, partition_demo.DEMO, AE_PARTS) for d in dict.fromkeys(("cpu", dev))}
+
+    def steady(r):
+        return dict(r, counters_w2={k: v for k, v in r["counters_w2"].items()
+                                    if k not in partition_demo.TIMING_COUNTERS})
+
+    for d, r in small.items():
+        if not r["pass"]:
+            raise AssertionError(f"20a: the drill at the demo's width failed on {d}: {json.dumps(r)[:4000]}")
+    if steady(small["cpu"]) != steady(small[dev]):
+        raise AssertionError(f"20a: the demo-width reports differ:\n{json.dumps(small['cpu'])}\n"
+                             f"{json.dumps(small[dev])}")
+    log("20a demo width", card=card, equal_cpu_card=True, bytes_ratio=small[dev]["bytes_ratio"],
+        partial_resync_bytes=small[dev]["partial_resync_bytes"], whole_resync_bytes=small[dev]["whole_resync_bytes"],
+        timing_counters={d: {k: r["counters_w2"].get(k) for k in partition_demo.TIMING_COUNTERS}
+                         for d, r in small.items()})
+    del small
+
+    # 20b: topo_demo whole, each worker's first kernel calls held.
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()  # the workers share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        rep_dir, doc_path = os.path.join(tmp, "reports"), os.path.join(tmp, "topo.json")
+        t_b = time.perf_counter()
+        run = run_procs({"topo_demo": ["-m", TOOLS + "topo_demo", "--device", dev, "--hold", "--report-dir", rep_dir,
+                                       "--timeout", str(TOPO_TIMEOUT), "--out", doc_path]},
+                        tmp, AE_TIMEOUT_S, env={"TMPDIR": tmp})["topo_demo"]
+        demo_s = time.perf_counter() - t_b
+        if run["rc"] != 0:
+            raise AssertionError(f"20b: topo_demo exited {run['rc']}:\n{run['out'][-8000:]}")
+        with open(doc_path) as f:
+            doc = json.load(f)
+        reports = read_reports(rep_dir)
+    legs_s = [float(x) for x in re.findall(r"leg seconds: ([\d.]+)", run["out"])]
+    b_got = {n: 0 for n in kernels3}
+    for name, r in reports.items():
+        if set(r["held"]) != {"K1c", "K2", "K3"} or any(v["max_abs_err"] or not v["equal"]
+                                                        for v in r["held"].values()):
+            raise AssertionError(f"20b: worker {name}'s held calls {r['held']}")
+        for n, v in r["launches"].items():
+            b_got[n] += v
+            launches[n] += v
+    if on_card:
+        require_launches(b_got, kernels3, "20b's workers")
+    cz, c = doc["cross_zone"], doc["counters"]
+    log("20b topo", card=card, demo_s=demo_s, legs_s=dict(zip(("topo", "mesh"), legs_s)),
+        killed_anchor=doc["killed_anchor"], converged=doc["converged"], baseline_converged=doc["baseline_converged"],
+        cross_zone_sends=dict(topo=cz["topo_frame_sends"], mesh=cz["mesh_frame_sends"], ratio=cz["ratio"]),
+        cross_zone_frames=cz["frames"], cross_zone_bytes=cz["bytes"], relays=c.get("topo.relays", 0),
+        anchor_changes=c.get("topo.anchor_changes", 0), failover_events=len(doc["failover_events"]),
+        failovers=[{k: ev.get(k) for k in ("member", "old", "new", "t")} for ev in doc["failover_events"]],
+        worker_timeout_s=TOPO_TIMEOUT, first_apply_ms={n: r["first_apply_ms"] for n, r in reports.items()},
+        workers=len(reports), launches=b_got, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -5154,6 +5388,7 @@ def main() -> int:
     multihost = phase_multihost(torch, card)
     elastic = phase_elastic(torch, card)
     observability = phase_observability(torch, card)
+    antientropy = phase_antientropy(torch, card)
     # `launches` is the count of the path that drives the kernel first
     # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
     # path's own count, each read from 0, is in `launches_by_path`.
@@ -5165,7 +5400,8 @@ def main() -> int:
                       ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged),
                       ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh),
                       ("multihost (phase 17)", multihost), ("elastic workers (phase 18)", elastic),
-                      ("observability fleets (phase 19)", observability)):
+                      ("observability fleets (phase 19)", observability),
+                      ("anti-entropy gates (phase 20)", antientropy)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

@@ -12,7 +12,8 @@
   signed certificate included; the certificate's clock frozen).
 * The port folds an ``elastic_demo`` observable digest to its crc32, where
   JAX's CLI stops; every script answers ``--help`` where ``import jax``
-  raises; the demos and ``laws`` without a device name the missing card.
+  raises; the demos and ``laws`` without a device name the missing card
+  (the anti-entropy demos ``partition_demo`` and ``topo_demo`` too).
 * chip_smoke.py's phase 19 at a small width on the CPU.
 """
 
@@ -33,7 +34,7 @@ from torch_twins import port_copy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ["ccrdt_trace", "ccrdt_spans", "ccrdt_rtrace", "ccrdt_devprof", "ccrdt_audit",
-           "obs_dashboard", "spans_demo", "overlap_demo"]
+           "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo"]
 
 globals().update(port_copy("test_trace_cli.py", imports=False, replace=[
     ('        "scripts",\n        "ccrdt_trace.py",',
@@ -286,7 +287,7 @@ def test_help_runs_where_jax_cannot_be_imported(name, no_jax):
 
 @pytest.mark.parametrize("name,args", [
     ("obs_dashboard", ["--demo"]), ("spans_demo", []), ("overlap_demo", []),
-    ("ccrdt_audit", ["laws", "--pairs", "2"]),
+    ("ccrdt_audit", ["laws", "--pairs", "2"]), ("partition_demo", []), ("topo_demo", []),
 ])
 def test_without_a_device_the_tool_names_the_missing_card(tmp_path, name, args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO, TMPDIR=str(tmp_path))
