@@ -2,7 +2,7 @@
 
     python -m antidote_ccrdt_tpu_torch.scripts.elastic_demo --root DIR --member w0 --n-members 3
         [--type topk_rmv|average|wordcount] [--die-at N] [--join-late S] [--delta] [--wal-dir DIR]
-        [--device cpu|cuda] [--shape demo|main|R,I,B,BR,M,K] [--report FILE] [--hold] [--settle-s S]
+        [--device cpu|cuda] [--shape demo|main|R,I,B,BR,M,K] [--report FILE] [--hold] [--settle-s S] [--local N]
 
 Port of ``scripts/elastic_demo.py``. N workers gossip a dense CRDT grid
 through a shared directory. Each step, each worker applies a
@@ -31,6 +31,10 @@ Options of the port only:
   K3) also runs its plain version; the two must be equal (in the report).
 * ``--settle-s``: the final barrier's progress window (10 s, as the JAX
   worker's); it gives up after six windows.
+* ``--local N``: the worker's device as N logical devices (default 1),
+  JAX's ``--xla_force_host_platform_device_count=N``: with
+  ``CCRDT_MESH=1`` (or ``--mesh``) and N > 1 the mesh plane arms over
+  them (multichip_demo's phase B runs its workers with ``--local 8``).
 
 The supervising tests (tests/test_torch_elastic_worker.py) launch several
 and check every survivor converges to the sequential reference.
@@ -467,6 +471,9 @@ def add_port_args(ap: argparse.ArgumentParser) -> None:
                     help="hold the first K1c, K2 and K3 call against its plain version")
     ap.add_argument("--settle-s", type=float, default=10.0,
                     help="the final barrier's progress window in seconds (six of them at most)")
+    ap.add_argument("--local", type=int, default=1,
+                    help="logical devices of the worker's device, for the mesh plane (CCRDT_MESH=1 or --mesh "
+                    "arms it over more than one); default 1")
 
 
 def worker_setup(args):
@@ -483,19 +490,28 @@ def worker_setup(args):
 
 
 @contextlib.contextmanager
-def on_device(dev):
+def on_device(dev, local: int = 1):
     """The worker's region: on the CPU, entry points called without a
     device run their plain path there (threads started inside included
-    as far as they pass the state's device on)."""
-    if dev.type == "cpu":
-        from antidote_ccrdt_tpu_torch.core.batch_merge import host_device
+    as far as they pass the state's device on). With `local` > 1 the
+    region's meshes are built over that many logical devices of `dev`
+    (``parallel.dist.logical_devices``, JAX's forced host devices). Like
+    the CPU region, it is a context variable, which a thread started
+    inside does not see: the worker builds its `MeshPlan` once, in this
+    thread, and hands the plan to every stage that runs on another."""
+    with contextlib.ExitStack() as stack:
+        if dev.type == "cpu":
+            from antidote_ccrdt_tpu_torch.core.batch_merge import host_device
 
-        with host_device():
-            yield
-    else:
-        import torch
+            stack.enter_context(host_device())
+        else:
+            import torch
 
-        torch.cuda.set_device(dev)
+            torch.cuda.set_device(dev)
+        if local > 1:
+            from antidote_ccrdt_tpu_torch.parallel.dist import logical_devices
+
+            stack.enter_context(logical_devices([dev] * local))
         yield
 
 
@@ -564,7 +580,7 @@ def main(argv=None) -> None:
 
     from antidote_ccrdt_tpu_torch.parallel.elastic import GossipStore
 
-    with on_device(dev):
+    with on_device(dev, args.local):
         report = Report(args, dev)
         drill = drills(dev, geo)[args.type]
         dense = drill.make_engine()

@@ -14,7 +14,7 @@ files appear, so late joiners are discovered too) and the
 `final-<member>.json` result drop the supervising test reads.
 
 The port's own options (``--device``, ``--shape``, ``--report``,
-``--hold``, ``--settle-s``) are elastic_demo.py's. A north-star anchor
+``--hold``, ``--settle-s``, ``--local``) are elastic_demo.py's. A north-star anchor
 (563 MB) is past ``MAX_FRAME``: over TCP the drill runs at the demo's
 width or a narrower ``--shape``.
 """
@@ -115,7 +115,7 @@ def main(argv=None) -> None:
     # first offsets align this worker's timeline in the merged trace.
     obs_spans.install_from_env(args.member)
 
-    with on_device(dev):
+    with on_device(dev, args.local):
         report = Report(args, dev)
         drill = drills(dev, geo)[args.type]
         dense = drill.make_engine()

@@ -30,7 +30,7 @@ printed text and exit codes over this package's engine, partition plane,
 ``TcpTransport`` and ``PartialAntiEntropy``::
 
     python -m antidote_ccrdt_tpu_torch.scripts.partition_demo [--partitions P] [--out FILE]
-        [--device cpu|cuda] [--shape demo|R,I,B,BR,M,K] [--send-timeout S]
+        [--device cpu|cuda] [--shape demo|main|R,I,B,BR,M,K] [--send-timeout S]
 
 Options of the port only:
 
@@ -38,8 +38,10 @@ Options of the port only:
   engine, every state and every op batch.
 * ``--shape``: ``demo`` (default) is the JAX drill's geometry (R = D = 4,
   256 ids, K = 8, M = 2, 32 adds and 8 removals a replica and step);
-  ``R,I,B,BR,M,K`` is the same uniform draw at another width, with
-  D = R. Replica r belongs to member ``r % 3``: at R = 4 that is the
+  ``main`` the main path's (R = D = 32, 100 000 ids, K = 100, M = 4,
+  32 768 adds and 2 048 removals), whose 563 MB anchor is past the
+  frame limit over TCP; ``R,I,B,BR,M,K`` is the same uniform draw at
+  another width, with D = R. Replica r belongs to member ``r % 3``: at R = 4 that is the
   JAX drill's map (w0: 0 and 3, w1: 1, w2: 2), and at any R every replica
   has an owner, so the fleet computes what the sequential reference does.
 * ``--send-timeout``: the ``TcpTransport`` send timeout (2.0 s, the
@@ -48,7 +50,8 @@ Options of the port only:
 
 The report goes to ``--out`` (default ``PART_torch_r01.json`` in the
 current directory), never to the committed ``PART_r01.json``.
-`run_drill` is the drill without the CLI: it returns the report.
+`run_drill` is the drill without the CLI: it returns the report (its
+``steps`` shortens the steps after the outage).
 """
 
 from __future__ import annotations
@@ -69,6 +72,8 @@ from antidote_ccrdt_tpu_torch.scripts.elastic_demo import Geometry  # noqa: E402
 # is not dominated by fixed per-blob overheads.
 R, NK, I, DCS, K, M, B, Br = 4, 1, 256, 4, 8, 2, 32, 8
 DEMO = Geometry(R, NK, I, DCS, K, M, B, Br, False)
+# The main path's width (bench.py main()) with the drill's uniform ids.
+MAIN = Geometry(32, 1, 100_000, 32, 100, 4, 32_768, 2_048, False)
 STEPS = 12
 # Steps in [OUTAGE_LO, OUTAGE_HI): w2 neither publishes nor sweeps, and
 # every replica's ops touch only ids from partition p* — the window
@@ -93,9 +98,11 @@ class DrillError(RuntimeError):
 
 
 def parse_shape(text: str) -> Geometry:
-    """``demo`` or ``R,I,B,BR,M,K`` (D = R, one key, uniform ids)."""
+    """``demo``, ``main`` or ``R,I,B,BR,M,K`` (D = R, one key, uniform ids)."""
     if text in ("", "demo"):
         return DEMO
+    if text == "main":
+        return MAIN
     r, ids, b, br, m, k = (int(x) for x in text.split(","))
     return Geometry(r, 1, ids, r, k, m, b, br, False)
 
@@ -159,26 +166,30 @@ def observable(dense, geo: Geometry, state):
     return sorted((int(i), int(s)) for (i, s) in obs)
 
 
-def sequential_reference(dense, geo: Geometry, ids_p, device):
+def sequential_reference(dense, geo: Geometry, ids_p, device, steps: int = STEPS):
     state = dense.init(geo.R, geo.NK)
-    for step in range(STEPS):
+    for step in range(steps):
         state = apply_step(dense, geo, state, step, range(geo.R), ids_p, device)
     return observable(dense, geo, state)
 
 
-def run_drill(device=None, geo: Geometry = DEMO, partitions: int = 8, send_timeout: float = SEND_TIMEOUT) -> dict:
+def run_drill(device=None, geo: Geometry = DEMO, partitions: int = 8, send_timeout: float = SEND_TIMEOUT,
+              steps: int = STEPS) -> dict:
     """The drill on `device` (the card by default; raises without one) at
-    width `geo` with `partitions` partitions: the JAX drill's report
+    width `geo` with `partitions` partitions over `steps` steps (at least
+    OUTAGE_HI; the JAX drill's 12 by default): the JAX drill's report
     (`checks`, `pass`). Raises `DrillError` where the JAX drill prints a
     FAIL line and exits 1 before its gates."""
     from antidote_ccrdt_tpu_torch.scripts.elastic_demo import on_device, resolve_worker_device
 
+    if steps < OUTAGE_HI:
+        raise ValueError(f"the drill needs at least {OUTAGE_HI} steps, not {steps}")
     dev = resolve_worker_device(device)
     with on_device(dev):
-        return _drill(dev, geo, partitions, send_timeout)
+        return _drill(dev, geo, partitions, send_timeout, steps)
 
 
-def _drill(dev, geo: Geometry, P: int, send_timeout: float) -> dict:
+def _drill(dev, geo: Geometry, P: int, send_timeout: float, steps: int) -> dict:
     import numpy as np
 
     from antidote_ccrdt_tpu_torch.core import partition as pt
@@ -315,7 +326,7 @@ def _drill(dev, geo: Geometry, P: int, send_timeout: float) -> dict:
 
         # Phase 3: remaining steps with everyone gossiping, then a
         # convergence tail until the digest vectors agree fleet-wide.
-        for step in range(OUTAGE_HI, STEPS):
+        for step in range(OUTAGE_HI, steps):
             for m in members:
                 states[m] = apply_step(dense, g, states[m], step, owned[m], ids_p, dev)
             round_of(step, members)
@@ -325,9 +336,9 @@ def _drill(dev, geo: Geometry, P: int, send_timeout: float) -> dict:
             if all(np.array_equal(vecs[0], v) for v in vecs[1:]):
                 agree = True
                 break
-            round_of(STEPS, members)
+            round_of(steps, members)
 
-        ref = sequential_reference(dense, g, ids_p, dev)
+        ref = sequential_reference(dense, g, ids_p, dev, steps)
         finals = {m: observable(dense, g, states[m]) for m in members}
         ref_match = all(finals[m] == ref for m in members)
         ratio = whole_bytes / max(1, partial_bytes)
@@ -346,7 +357,7 @@ def _drill(dev, geo: Geometry, P: int, send_timeout: float) -> dict:
             "drill": "partition_demo",
             "geometry": {
                 "R": g.R, "NK": g.NK, "I": g.I, "DCS": g.DCS, "K": g.K, "M": g.M,
-                "B": g.B, "Br": g.Br, "steps": STEPS,
+                "B": g.B, "Br": g.Br, "steps": steps,
             },
             "partitions": P,
             "p_star": p_star,
@@ -379,7 +390,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="PART_torch_r01.json",
                     help="the report (default: PART_torch_r01.json in the current directory)")
     ap.add_argument("--device", default=None, help="cpu or cuda (default: the card; raises without one)")
-    ap.add_argument("--shape", default="demo", help="the drill's width: demo or R,I,B,BR,M,K (D = R)")
+    ap.add_argument("--shape", default="demo", help="the drill's width: demo, main or R,I,B,BR,M,K (D = R)")
     ap.add_argument("--send-timeout", type=float, default=SEND_TIMEOUT,
                     help="the TCP transports' send timeout in seconds")
     args = ap.parse_args(argv)

@@ -101,7 +101,7 @@ Phases, each printing one line (any failure exits non-zero):
    I = 40 000 (the widest anchor under ``MAX_FRAME``) pass an anchor and
    three chained deltas, the receiver's state equal to the sender's;
 13. served fleet: (a) the read plane at the main path's width: phase 4's
-   engine and seeded batches, 4 apply rounds each swapped into a
+   engine and seeded batches, 2 apply rounds each swapped into a
    ``ServePlane``, materialized (the fold's K3 joins, ``observe``, the host
    pull, timed apart) and read by 4 client threads sending frames of
    1 024 queries in ``scripts/serve_demo.py``'s mix through ``handle()``
@@ -112,10 +112,10 @@ Phases, each printing one line (any failure exits non-zero):
    writers, in process on the card: 3 workers (``TcpTransport``,
    ``GossipNode``, ``ServePlane``, ``IngestPlane``, ``ElasticWal``) over
    R = 32 replicas, NK = 4 keys, 4 096 ids, a full-snapshot sweep every
-   step for 10 steps, 4 query threads and 3 write sessions (acks
+   step for 7 steps, 4 query threads and 3 write sessions (acks
    ``durable`` and ``replicated_to_k``, every ack read back by its
    session) under the demos' seeded faults, the hot key's owner failing
-   after its publish at step 5; gates: no bound violation, no identity
+   after its publish at step 3; gates: no bound violation, no identity
    mismatch, both certificates verified, the survivors at the sequential
    reference digest (every replica's ops and every folded client write),
    the write tier's counters lit, worker w0's K1c, K2 and K3 calls held
@@ -129,8 +129,8 @@ Phases, each printing one line (any failure exits non-zero):
    every round, ``drain_into`` every third round, so that the queue
    sheds); gates: the survivors at the sequential reference, folds and
    dropped deltas counted, no apply error, m0's kernel calls held against
-   their plain versions; (b) 3 members on ``FsTransport``, 4 rounds
-   serially (publish, ``sweep_deltas``) and 4 overlapped (publishes on the
+   their plain versions; (b) 3 members on ``FsTransport``, 3 rounds
+   serially (publish, ``sweep_deltas``) and 3 overlapped (publishes on the
    ``HostStage``, fetches on the ``DeltaPrefetcher`` thread,
    ``drain_into``), each arm closed by a serial tail: equal digests at the
    reference, round p50/p99 of each arm, the host stage's stalls; (c)
@@ -212,7 +212,8 @@ Phases, each printing one line (any failure exits non-zero):
    anchors through a shared directory for 10 steps, w1 dying at step 4
    (the failure detector slowed to an 8 s timeout and a 0.25 s heartbeat,
    the final barrier's window to 60 s, so that an anchor publish is not
-   taken for a death); gates: w1 exits 1, the survivors 0 with digests
+   taken for a death), the span plane and the device observatory on,
+   their spill kept for phase 19d; gates: w1 exits 1, the survivors 0 with digests
    equal to a sequential reference this process computes on the card from
    phase 12's ``GossipOps`` (every replica, every step), w1 out of their
    alive view, each survivor's first K1c, K2 and K3 call equal to the
@@ -221,9 +222,9 @@ Phases, each printing one line (any failure exits non-zero):
    the four supervisors at once: every verdict ok, the card fleets'
    final digests the CPU fleets'; (c) ``net_gossip_demo.py``'s TCP crash
    drill (3 workers, w1 dying at step 4) at elastic_demo's width:
-   survivors at the reference, retries and received frames counted. Each
-   fleet is killed, every process group of it, after a time limit; each
-   18a worker must launch K1c, K2 and K3;
+   survivors at the reference, retries and received frames counted; (b)
+   and (c) run beside (a). Each fleet is killed, every process group of
+   it, after a time limit; each 18a worker must launch K1c, K2 and K3;
 19. observability fleets: the operator tools of
    ``antidote_ccrdt_tpu_torch/scripts/`` as subprocesses on the card. (a)
    ``obs_dashboard --demo`` (3 TCP workers of ``net_gossip_demo.py`` at
@@ -233,8 +234,8 @@ Phases, each printing one line (any failure exits non-zero):
    coverage, rounds, offset edges and each phase's p50; (c)
    ``overlap_demo`` whole: both arms' digests the reference, the pipeline's
    counters, round.e2e p50 at least 0.30 below the serial arm's, each
-   arm's dispatch gap; (d) phase 18a's crash drill again with
-   ``CCRDT_SPANS=1``, ``CCRDT_DEVPROF=1`` and a spill directory, read by
+   arm's dispatch gap; (d) the spill of phase 18a's crash drill
+   (``CCRDT_SPANS=1``, ``CCRDT_DEVPROF=1``), read at once by
    ``ccrdt_spans merge`` (spans of both survivors) and ``attribute``,
    ``ccrdt_trace summary`` and ``ccrdt_devprof churn`` and
    ``watermarks``, each survivor's step loop printed from its spans (each
@@ -242,14 +243,15 @@ Phases, each printing one line (any failure exits non-zero):
    anchor snapshots beside the steps); (e) ``ccrdt_audit laws`` on the card
    equal byte for byte to the CPU's, ``laws --selftest``, and ``certify
    --final-dir`` and ``verify`` over (b)'s fleet against this process's
-   reference; (a), (b) and (e)'s law checks run at once, (c) and (d)
-   alone; every leg's worker reports counted, each leg must launch K1c,
+   reference; (a), (b) and (e)'s law checks run at once, (c) alone;
+   the worker reports of (a)-(c) counted, each of them must launch K1c,
    K2 and K3;
 20. anti-entropy gates: (a) a TCP probe (1, 130 and 225 MB deltas between
    two ``TcpTransport``s, landed byte for byte), then
    ``partition_demo.run_drill`` in this process at R = D = 32, 40 000 ids (225 MB a member, the widest anchor under
    ``MAX_FRAME``), K = 100, M = 4, 32 768 uniform adds and 2 048 removals
-   a replica and step, P = 8: 3 ``TcpTransport`` members, w2 out of the
+   a replica and step, P = 8, 10 steps (cut from the demo's 12): 3
+   ``TcpTransport`` members, w2 out of the
    gossip for steps 4-8 while every op hits one partition p*, then the
    whole-snapshot and the digest-and-psnap repair from the same state;
    all seven of the demo's checks (at least 5x fewer repair bytes,
@@ -266,10 +268,36 @@ Phases, each printing one line (any failure exits non-zero):
    event off the victim, at most half the full mesh's cross-zone sends,
    each worker's first K1c, K2 and K3 call equal to the plain version;
    each of (a) and (b) must launch K1c, K2 and K3;
-21. the kernels line (launches on each path that drives a kernel, phases
-   9-20 included; phase 17's are its workers' and its sites', not the
-   reference's; phases 18-20 their card workers' and 20a's drill), then
-   the ok line.
+21. certified convergence: (a) ``audit_demo``'s divergent arm at the
+   main path's width in this process (three steps of elastic_demo's
+   stream on every replica, a twin with one more add of id 17, each
+   K1c, K2 and K3 call held against its plain version): p* among the
+   divergent partitions, the watchdog's ok, diverged, wedged, ok, and a
+   failed, verified certificate naming exactly the divergent partitions;
+   the arm at the demo's width equal on the CPU and the card (a frozen
+   wall clock); later two fleets at once on the card, the law checker
+   (every registered type, 32 pairs, the broken merge caught) beside
+   them: ``run_healthy`` (3 ``net_gossip_demo`` workers at
+   elastic_demo's width, seeded ``tcp.send`` drops, 8 partitions, each's
+   first kernel calls held: certificate OK and verified, no wedge alarm),
+   ``run_durability`` (the async wal crash drill certified with its
+   durability watermark, the fabricated pre-fsync loss flagged with
+   [6, 9] uncovered); (b) ``multichip_demo.phase_b`` (3 ``elastic_demo``
+   workers of 8 logical devices each at the main path's width, each's
+   first kernel calls held, ``CCRDT_MESH=1``, w1 SIGKILLed at anchor seq
+   3-7: every check of the demo) beside its phase A in this process, at
+   the same width (a (2, 4) mesh of 8 logical devices, an ``FsTransport`` pair, one partition diverged and repaired
+   through the mesh-grouped partial anti-entropy: at least 5x fewer
+   bytes, bit-identical digests, the cross-slice counters lit, no wasted
+   psnap, the anchor published per shard; 20 ``ici_reduce`` calls timed),
+   then at the demo's width equal on the CPU and the card, digest vectors
+   included; each of the divergent arm, the fleets and phase A must
+   launch K1c, K2 and K3;
+22. the kernels line (launches on each path that drives a kernel, phases
+   9-21 included; phase 17's are its workers' and its sites', not the
+   reference's; phases 18-21 their card workers', 20a's drill, 21a's
+   divergent arm and 21b's phase A with phase B's reference), then the
+   ok line.
 
 Imports nothing of JAX. Without a card, or outside the repository, it
 exits non-zero and prints no result.
@@ -338,8 +366,9 @@ GOSSIP_SMALL = (4, 4_096, 256, 32)
 TCP_IDS, TCP_DELTAS = 40_000, 3
 # Phase 13a, the read plane at the main path's width: apply rounds each
 # swapped into a ServePlane, client threads sending frames of queries in
-# scripts/serve_demo.py's mix for a window after each swap.
-SERVE_ROUNDS, SERVE_CLIENTS, SERVE_FRAME, SERVE_WINDOW_S = 4, 4, 1_024, 1.0
+# scripts/serve_demo.py's mix for a window after each swap (cut from 4
+# rounds to 2 for time).
+SERVE_ROUNDS, SERVE_CLIENTS, SERVE_FRAME, SERVE_WINDOW_S = 2, 4, 1_024, 1.0
 # Phase 13b, the served fleet: scripts/serve_demo.py's flow (3 workers on
 # TcpTransport sockets, a full-snapshot sweep every step, 4 query threads
 # sending frames of 1 024 queries over NK = 4 keys) with
@@ -349,8 +378,10 @@ SERVE_ROUNDS, SERVE_CLIENTS, SERVE_FRAME, SERVE_WINDOW_S = 4, 4, 1_024, 1.0
 # its publish at FLEET_KILL_AT. Width (R, I, B, Br): R = D = 32, M = 4,
 # K = 100 as the main path, the demo's 4:1 adds to removals, I cut to
 # 4 096 ids a key for time (every step publishes each worker's whole
-# state over TCP).
-FLEET_MEMBERS, FLEET_STEPS, FLEET_KILL_AT, FLEET_NK, FLEET_TAIL = ("w0", "w1", "w2"), 10, 5, 4, 10
+# state over TCP). Cut from 10 steps with the kill after step 5 to 7 steps
+# with the kill after step 3, for time; the writers still run a step past
+# the kill (they stop at step FLEET_STEPS - 2).
+FLEET_MEMBERS, FLEET_STEPS, FLEET_KILL_AT, FLEET_NK, FLEET_TAIL = ("w0", "w1", "w2"), 7, 3, 4, 10
 FLEET = (32, 4_096, 2_048, 512)
 FLEET_WRITERS, FLEET_IDS_PER_BURST, FLEET_ADDS_PER_ID, FLEET_STALENESS_S = 3, 3, 4, 60.0
 # The fleet's query threads wait this long between frames, so that the
@@ -380,8 +411,10 @@ OVERLAP_DEPTH, OVERLAP_DRAIN_EVERY = 3, 3
 # Phase 14b, serial against overlapped rounds with live threads: 3 members
 # on FsTransport (wall clock), DeltaPublisher(full_every=4); the overlapped
 # arm publishes on the pipeline's HostStage and fetches on its
-# DeltaPrefetcher thread; a serial tail then converges each arm.
-PIPE_MEMBERS, PIPE_STEPS, PIPE_TAIL = ("p0", "p1", "p2"), 4, 20
+# DeltaPrefetcher thread; a serial tail then converges each arm. Cut from
+# 4 rounds an arm to 3, for time: the serial arm's tail then publishes a
+# delta where it published a 563 MB anchor (full_every=4).
+PIPE_MEMBERS, PIPE_STEPS, PIPE_TAIL = ("p0", "p1", "p2"), 3, 20
 # Phase 14c, scripts/working_set_demo.py's run_drill at the main path's
 # width: 3 workers on FsTransport, P = 32 partitions, each pager's budget a
 # tenth of the state, the demo's add-only batches (96 Zipf(2.2) ids a
@@ -463,11 +496,11 @@ ELASTIC_VICTIM = "w1"
 # obs_dashboard, spans_demo, overlap_demo), each run as `python -m`: 19a
 # obs_dashboard --demo, 19b spans_demo and 19c overlap_demo (3 TCP workers of
 # net_gossip_demo.py at elastic_demo's width each, the demos' own settings),
-# 19d phase 18a's crash drill again with the span plane and the device
-# observatory on, its spill read by ccrdt_spans, ccrdt_trace and
-# ccrdt_devprof, 19e ccrdt_audit laws on the card and the CPU (every
-# registered type, 512 pairs) and its certify and verify over 19b's fleet. A
-# demo is killed after OBS_TIMEOUT_S, a CLI after OBS_CLI_TIMEOUT_S.
+# 19d phase 18a's spill (its drill runs with the span plane and the device
+# observatory on) read by ccrdt_spans, ccrdt_trace and ccrdt_devprof, 19e
+# ccrdt_audit laws on the card and the CPU (every registered type, 512
+# pairs) and its certify and verify over 19b's fleet. A demo is killed
+# after OBS_TIMEOUT_S, a CLI after OBS_CLI_TIMEOUT_S.
 OBS_TIMEOUT_S, OBS_CLI_TIMEOUT_S = 300.0, 120.0
 TOOLS = "antidote_ccrdt_tpu_torch.scripts."
 # A fleet line of obs.spans.format_report (the demos print one a fleet).
@@ -486,7 +519,28 @@ SPANS_FLEET_LINE = re.compile(r"rounds=(\d+) e2e p50 ([\d.]+)ms \| serial ([\d.]
 # failure detector at TOPO_TIMEOUT s (the demo's own). topo_demo is
 # killed after AE_TIMEOUT_S.
 AE_SHAPE, AE_PARTS, AE_SEND_TIMEOUT = "32,40000,32768,2048,4,100", 8, 120.0
+# 20a's drill at AE_SHAPE runs AE_STEPS steps, cut from the demo's 12 for
+# time (one step with every member gossiping after the outage, not three:
+# each round publishes 225 MB anchors over TCP); the demo-width runs keep 12.
+AE_STEPS = 10
 TOPO_TIMEOUT, AE_TIMEOUT_S = 0.5, 600.0
+# Phase 21, the certified-convergence gates of antidote_ccrdt_tpu_torch/scripts/.
+# 21a: audit_demo's divergent arm at CERT_SHAPE (the main path's width,
+# elastic_demo's stream) in this process, then at the demo's width on the
+# CPU and the card; its healthy fleet (3 net_gossip_demo workers at
+# elastic_demo's width, seeded tcp.send drops, 8 partitions), its
+# durability leg (crash_recovery_demo's async wal drill at that width, and
+# the fabricated pre-fsync loss) and the law checker (CERT_PAIRS pairs,
+# JAX's). 21b: multichip_demo's phase A at MULTICHIP_SHAPE (R = D = 32,
+# 100 000 ids, K = 100, M = 4, 32 768 uniform adds and 2 048 removals a
+# replica and step, P = 8, a (2, 4) mesh of 8 logical devices, over
+# FsTransport, which has no frame limit), then at the demo's width on the
+# CPU and the card; its phase B (3 elastic_demo workers of 8 logical
+# devices each at MULTICHIP_SHAPE, elastic_demo's Zipf stream as in 18a,
+# with 18a's slowed failure detector, w1 SIGKILLed mid-load) beside
+# phase A. Then the healthy and durability fleets at once. Each fleet is
+# killed after CERT_TIMEOUT_S.
+CERT_SHAPE, CERT_PAIRS, MULTICHIP_SHAPE, CERT_TIMEOUT_S = "main", 32, "main", 300.0
 # 20a's TCP probe: a delta of each size (MB) sent between two TcpTransports
 # on 127.0.0.1 (1 MB opens the link; 130 MB is the drill's last
 # pre-outage delta, 225 MB its anchor).
@@ -4889,16 +4943,30 @@ def run_crash_recovery(dev: str, root: str, mode: str) -> dict:
     return dict(verdicts=verdicts, reports=read_reports(rep_dir), supervisor_s=got["exit_t"] - got["spawn_t"])
 
 
-def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
+def run_spanned_drill(torch, dev: str, root: str) -> dict:
+    """18a: `run_drill_fleet` of elastic_demo.py at ELASTIC_SHAPE with
+    --delta and the slowed failure detector, the survivors' first kernel
+    calls held, the span plane and the device observatory on: the drill's
+    result, with `root` and its spill directory `obs` (read in 19d)."""
+    obs = os.path.join(root, "obs")
+    os.makedirs(root, exist_ok=True)
+    slow = ["--delta", "--timeout", str(ELASTIC_TIMEOUT), "--hb-interval", str(ELASTIC_HB),
+            "--settle-s", str(ELASTIC_SETTLE_S)]
+    drill = run_drill_fleet(torch, dev, "antidote_ccrdt_tpu_torch.scripts.elastic_demo", root, ELASTIC_SHAPE, slow,
+                            hold=True, env={"CCRDT_OBS_DIR": obs, "CCRDT_SPANS": "1", "CCRDT_DEVPROF": "1"})
+    return dict(drill, root=root, obs=obs)
+
+
+def phase_elastic(torch, card: str, root_a: str, dev: str = "cuda"):
     """Phase 18: the elastic drill workers of antidote_ccrdt_tpu_torch/scripts
-    as real processes. (a) `run_drill_fleet` of elastic_demo.py at
-    ELASTIC_SHAPE with --delta, survivors' first kernel calls held; (b)
-    crash_recovery_demo.py's wal and adopt arms on `dev` and on the CPU
-    at once, every verdict ok and the card fleet's final digests the CPU
-    fleet's; (c) net_gossip_demo.py's TCP crash drill at elastic_demo's
-    width, converged with retries and received frames counted. Returns
-    the path's launches: every card worker's that wrote a report (the
-    survivors and the restarted victims; a killed worker writes none)."""
+    as real processes. (a) `run_spanned_drill` in `root_a`, which the
+    caller keeps for 19d; (b) crash_recovery_demo.py's wal and adopt arms
+    on `dev` and on the CPU at once, every verdict ok and the card fleet's
+    final digests the CPU fleet's; (c) net_gossip_demo.py's TCP crash drill
+    at elastic_demo's width, converged with retries and received frames
+    counted; (b) and (c) run beside (a). Returns the path's launches (every
+    card worker's that wrote a report: the survivors and the restarted
+    victims; a killed worker writes none) and 18a's drill."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4913,15 +4981,28 @@ def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
         for n, v in rep["launches"].items():
             launches[n] += v
 
-    fs_module = "antidote_ccrdt_tpu_torch.scripts.elastic_demo"
     tcp_module = "antidote_ccrdt_tpu_torch.scripts.net_gossip_demo"
     with tempfile.TemporaryDirectory() as tmp:
-        # 18a: the crash drill at the main path's width.
-        root = os.path.join(tmp, "a")
+        # 18a's drill in this thread, 18b's four supervisors (the arms on
+        # the card and on the CPU) and 18c's TCP drill beside it: none of
+        # them gates a time.
+        devs = {"card": dev, "cpu": "cpu"} if on_card else {"cpu": "cpu"}
+        runs = [(name, mode) for name in devs for mode in ("wal", "adopt")]
+        for name, mode in runs:
+            os.makedirs(os.path.join(tmp, f"b-{name}-{mode}"))
+        root = os.path.join(tmp, "c")
         os.makedirs(root)
-        slow = ["--delta", "--timeout", str(ELASTIC_TIMEOUT), "--hb-interval", str(ELASTIC_HB),
-                "--settle-s", str(ELASTIC_SETTLE_S)]
-        a = run_drill_fleet(torch, dev, fs_module, root, ELASTIC_SHAPE, slow, hold=True)
+        t_abc = time.perf_counter()
+        with ThreadPoolExecutor(len(runs) + 1) as pool:
+            futs = {(name, mode): pool.submit(run_crash_recovery, devs[name], os.path.join(tmp, f"b-{name}-{mode}"),
+                                              mode) for name, mode in runs}
+            f_c = pool.submit(run_drill_fleet, torch, dev, tcp_module, root, "demo")
+            a = run_spanned_drill(torch, dev, root_a)
+            done = {k: f.result() for k, f in futs.items()}
+            c = f_c.result()
+        abc_s = time.perf_counter() - t_abc
+
+        # 18a: the crash drill at the main path's width, its spill kept.
         for rep in a["reports"].values():
             add(rep)
             if on_card:
@@ -4932,23 +5013,10 @@ def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
             fleet_s=a["fleet_s"], per_worker={m: _worker_numbers(r) for m, r in a["reports"].items()},
             recovery=_recovery_times(a), held={m: r["held"] for m, r in a["reports"].items()},
             confirmed_dead={m: r["confirmed_dead"] for m, r in a["reports"].items()},
-            converged=True, valid_observed=a["valid_observed"])
-        del a
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
+            converged=True, valid_observed=a["valid_observed"], spans_and_devprof_on=True,
+            beside=["18b", "18c"])
 
-        # 18b: crash_recovery_demo's two arms on the card and on the CPU,
-        # the four supervisors at once.
-        t_b = time.perf_counter()
-        devs = {"card": dev, "cpu": "cpu"} if on_card else {"cpu": "cpu"}
-        runs = [(name, mode) for name in devs for mode in ("wal", "adopt")]
-        for name, mode in runs:
-            os.makedirs(os.path.join(tmp, f"b-{name}-{mode}"))
-        with ThreadPoolExecutor(len(runs)) as pool:
-            futs = {(name, mode): pool.submit(run_crash_recovery, devs[name], os.path.join(tmp, f"b-{name}-{mode}"),
-                                              mode) for name, mode in runs}
-            done = {k: f.result() for k, f in futs.items()}
+        # 18b: crash_recovery_demo's two arms on the card and on the CPU.
         b = {name: dict(verdicts=[done[name, m]["verdicts"][0] for m in ("wal", "adopt")],
                         reports={k: r for m in ("wal", "adopt") for k, r in done[name, m]["reports"].items()},
                         supervisor_s={m: done[name, m]["supervisor_s"] for m in ("wal", "adopt")})
@@ -4969,12 +5037,9 @@ def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
             verdicts_ok=True, kill_seq=[v["kill_seq"] for v in card_b["verdicts"]], victims=victims,
             supervisor_s={n: r["supervisor_s"] for n, r in b.items()},
             per_worker={k: _worker_numbers(r) for k, r in card_b["reports"].items()},
-            card_equals_cpu=on_card, reduced_s=time.perf_counter() - t_b)
+            card_equals_cpu=on_card)
 
         # 18c: the TCP crash drill at elastic_demo's width.
-        root = os.path.join(tmp, "c")
-        os.makedirs(root)
-        c = run_drill_fleet(torch, dev, tcp_module, root, "demo")
         for m, final in c["finals"].items():
             mets = final["metrics"]
             if not (mets.get("net.retries", 0) > 0 and mets.get("net.frames_recv", 0) > 0):
@@ -4986,8 +5051,8 @@ def phase_elastic(torch, card: str, dev: str = "cuda") -> dict:
             recovery=_recovery_times(c),
             net={m: {k: f["metrics"].get(k) for k in ("net.retries", "net.frames_recv", "net.frames_sent")}
                  for m, f in c["finals"].items()},
-            converged=True, phase_s=time.perf_counter() - t_phase)
-    return launches
+            converged=True, abc_s=abc_s, phase_s=time.perf_counter() - t_phase)
+    return launches, a
 
 
 def run_cli(name: str, *args):
@@ -5061,17 +5126,18 @@ def read_step_loop(recs: list, steps: int) -> dict:
                 gossip_send_max_ms=max(sends, default=None))
 
 
-def phase_observability(torch, card: str, dev: str = "cuda") -> dict:
+def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dict:
     """Phase 19: the operator's observability tools of
     antidote_ccrdt_tpu_torch/scripts as subprocesses. (a) obs_dashboard
     --demo and (b) spans_demo, beside (e)'s law checks; (c) overlap_demo
     alone, whole on a card (on the CPU its fleets and its digest and
-    counter gates, without the timing bar); (d) phase 18a's crash drill with the span plane and the device
-    observatory on, read by ccrdt_spans merge and attribute, ccrdt_trace
-    summary and ccrdt_devprof churn and watermarks; (e) ccrdt_audit laws on
-    `dev` equal byte for byte to the CPU's, the selftest, and certify and
-    verify over 19b's fleet. Returns the workers' launches (each leg's
-    reports)."""
+    counter gates, without the timing bar); (d) the spill of phase 18a's
+    crash drill (`drill`, `run_spanned_drill`'s: the span plane and the
+    device observatory on) read by ccrdt_spans merge and attribute,
+    ccrdt_trace summary and ccrdt_devprof churn and watermarks, at once;
+    (e) ccrdt_audit laws on `dev` equal byte for byte to the CPU's, the
+    selftest, and certify and verify over 19b's fleet. Returns the workers'
+    launches (19a-c's reports; 18a's are phase 18's)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5153,28 +5219,43 @@ def phase_observability(torch, card: str, dev: str = "cuda") -> dict:
             gap_p50_ms=dict(zip(("serial", "overlap"), (f["gap_ms_p50"] for f in fleets))),
             launches=add(c["reports"], "19c's workers"))
 
-        # 19d: phase 18a's drill, its step loop read through the spans.
-        root = os.path.join(tmp, "d")
-        obs = os.path.join(root, "obs")
-        os.makedirs(root)
-        slow = ["--delta", "--timeout", str(ELASTIC_TIMEOUT), "--hb-interval", str(ELASTIC_HB),
-                "--settle-s", str(ELASTIC_SETTLE_S)]
-        d = run_drill_fleet(torch, dev, "antidote_ccrdt_tpu_torch.scripts.elastic_demo", root, ELASTIC_SHAPE, slow,
-                            hold=True, env={"CCRDT_OBS_DIR": obs, "CCRDT_SPANS": "1", "CCRDT_DEVPROF": "1"})
+        # 19d: phase 18a's drill, its step loop read through the spans; the
+        # five reads at once, beside 19e's certify and verify of 19b's fleet.
+        d, root, obs = drill, drill["root"], drill["obs"]
         survivors = sorted(d["reports"])
-        d_launches = add(d["reports"], "19d's survivors")
-        trace = os.path.join(root, "spans_trace.json")
-        merge_out = cli_out(run_cli("ccrdt_spans", "merge", obs, "-o", trace), "19d ccrdt_spans merge")
+        trace = os.path.join(tmp, "spans_trace.json")
+        t_d = time.perf_counter()
+        ref = gossip_reference(torch, dev, parse_shape("demo"))
+        crc = zlib.crc32(json.dumps(ref, sort_keys=True).encode("utf-8")) & 0xFFFFFFFF
+        cert = os.path.join(b_root, "cert.json")
+
+        def certify_and_verify():
+            doc = json.loads(cli_out(run_cli("ccrdt_audit", "certify", os.path.join(fleet_dir, "obs"), "--final-dir",
+                                             fleet_dir, "--reference", "%08x" % crc, "--out", cert, "--json"),
+                                     "19e certify"))
+            return doc, json.loads(cli_out(run_cli("ccrdt_audit", "verify", cert, "--json"), "19e verify"))
+
+        with ThreadPoolExecutor(6) as pool:
+            f_cert = pool.submit(certify_and_verify)
+            f_merge = pool.submit(run_cli, "ccrdt_spans", "merge", obs, "-o", trace)
+            f_att = pool.submit(run_cli, "ccrdt_spans", "attribute", obs, "--json")
+            f_summary = pool.submit(run_cli, "ccrdt_trace", "summary", obs, "--json")
+            f_churn = pool.submit(run_cli, "ccrdt_devprof", "churn", obs, "--json")
+            f_marks = pool.submit(run_cli, "ccrdt_devprof", "watermarks", root)
+            merge_out = cli_out(f_merge.result(), "19d ccrdt_spans merge")
+            d_att = json.loads(cli_out(f_att.result(), "19d ccrdt_spans attribute"))
+            summary = json.loads(cli_out(f_summary.result(), "19d ccrdt_trace summary"))
+            churn = f_churn.result()
+            marks = cli_out(f_marks.result(), "19d ccrdt_devprof watermarks")
+            cert_doc, verify = f_cert.result()
+        reads_s = time.perf_counter() - t_d
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
         lanes = {e["pid"]: e["args"]["name"] for e in events if e.get("ph") == "M" and e.get("name") == "process_name"}
         per_lane = {m: sum(1 for e in events if e.get("ph") == "X" and lanes.get(e.get("pid")) == m) for m in survivors}
         if not all(per_lane.values()):
             raise AssertionError(f"19d: the merged trace's spans by survivor {per_lane}")
-        d_att = json.loads(cli_out(run_cli("ccrdt_spans", "attribute", obs, "--json"), "19d ccrdt_spans attribute"))
-        summary = json.loads(cli_out(run_cli("ccrdt_trace", "summary", obs, "--json"), "19d ccrdt_trace summary"))
         # A compile is a kernel's first load: on the CPU none happens.
-        churn = run_cli("ccrdt_devprof", "churn", obs, "--json")
         if on_card:
             churn_rows = json.loads(cli_out(churn, "19d ccrdt_devprof churn"))
             if not churn_rows:
@@ -5184,7 +5265,6 @@ def phase_observability(torch, card: str, dev: str = "cuda") -> dict:
             if "no devprof.compile events" not in churn.stderr:
                 raise AssertionError(f"19d: churn on the CPU said {churn.stderr[-2000:]}")
             churn_rows = []
-        marks = cli_out(run_cli("ccrdt_devprof", "watermarks", root), "19d ccrdt_devprof watermarks")
         spill = obs_spans.scan_dir(obs)
         log("19d elastic spans", card=card, shape=ELASTIC_SHAPE, fleet_s=d["fleet_s"], survivors=survivors,
             merge=merge_out.splitlines()[:3], merged_spans_by_survivor=per_lane,
@@ -5195,12 +5275,12 @@ def phase_observability(torch, card: str, dev: str = "cuda") -> dict:
             trace=dict(deltas_traced=summary["deltas_traced"], complete_paths=summary["complete_paths"],
                        apply_samples=summary.get("apply_samples"), never_applied=len(summary.get("never_applied", [])),
                        pairs_p50_ms={k: v["p50_ms"] for k, v in summary.get("pairs", {}).items()}),
-            churn=churn_rows, watermarks=marks.splitlines()[1:], launches=d_launches, converged=True)
-        del d
+            churn=churn_rows, watermarks=marks.splitlines()[1:], reads_s=reads_s,
+            drill="phase 18a's (its launches counted there)", converged=True)
         gc.collect()
 
         # 19e: the law checker on the card and the CPU (run beside 19a and
-        # 19b), the certificate of 19b's fleet.
+        # 19b), the certificate of 19b's fleet (made beside 19d's reads).
         if laws[dev] != laws["cpu"]:
             raise AssertionError(f"19e: the law reports differ:\n{laws[dev][:2000]}\n{laws['cpu'][:2000]}")
         law_doc = json.loads(laws[dev])
@@ -5208,21 +5288,13 @@ def phase_observability(torch, card: str, dev: str = "cuda") -> dict:
             raise AssertionError(f"19e: a law failed: {laws[dev][:4000]}")
         if "CAUGHT" not in selftest:
             raise AssertionError(f"19e: {selftest}")
-        t_e = time.perf_counter()
-        ref = gossip_reference(torch, dev, parse_shape("demo"))
-        crc = zlib.crc32(json.dumps(ref, sort_keys=True).encode("utf-8")) & 0xFFFFFFFF
-        cert = os.path.join(b_root, "cert.json")
-        cert_doc = json.loads(cli_out(run_cli("ccrdt_audit", "certify", os.path.join(fleet_dir, "obs"), "--final-dir",
-                                              fleet_dir, "--reference", "%08x" % crc, "--out", cert, "--json"),
-                                      "19e certify"))
         if not (cert_doc["ok"] and cert_doc["checks"].get("matches_reference")):
             raise AssertionError(f"19e: the certificate {json.dumps(cert_doc)[:4000]}")
-        verify = json.loads(cli_out(run_cli("ccrdt_audit", "verify", cert, "--json"), "19e verify"))
         log("19e audit", card=card, law_types=law_doc["n_types"], law_checks=law_doc["n_law_checks"],
             pairs=law_doc["pairs"], card_equals_cpu=on_card, selftest_caught=True,
             certificate=dict(checks=cert_doc["checks"], flight_logs=cert_doc["n_flight_logs"],
                              signature=cert_doc["signature"][:16]),
-            verify=verify, laws_s=laws_s, certify_s=time.perf_counter() - t_e, phase_s=time.perf_counter() - t_phase)
+            verify=verify, laws_s=laws_s, certify_and_reads_s=reads_s, phase_s=time.perf_counter() - t_phase)
     return launches
 
 
@@ -5263,7 +5335,7 @@ def phase_antientropy(torch, card: str, dev: str = "cuda") -> dict:
     before = launch_counts()
     t0 = time.perf_counter()
     with held_against_plain(torch, held), delta_landings_and_sweeps() as seen:
-        rep = partition_demo.run_drill(dev, geo, AE_PARTS, AE_SEND_TIMEOUT)
+        rep = partition_demo.run_drill(dev, geo, AE_PARTS, AE_SEND_TIMEOUT, AE_STEPS)
     drill_s = time.perf_counter() - t0
     margin_s = pre_outage_margin_s(seen, partition_demo.OUTAGE_LO)
     got = _since(before)
@@ -5350,7 +5422,242 @@ def phase_antientropy(torch, card: str, dev: str = "cuda") -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def recorded_digests(into: list):
+    """Watches a run, changing nothing it does: every digest vector
+    ``core.partition.state_digests`` returns is appended to `into`."""
+    from antidote_ccrdt_tpu_torch.core import partition
+
+    state_digests = partition.state_digests
+
+    def record(state, P):
+        vec = state_digests(state, P)
+        into.append([int(x) for x in vec])
+        return vec
+
+    partition.state_digests = record
+    try:
+        yield into
+    finally:
+        partition.state_digests = state_digests
+
+
+@contextlib.contextmanager
+def one_thread_workers():
+    """While open, the workers this process starts run one CPU thread each
+    (unless the environment already says otherwise)."""
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+
+
+def phase_certified(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 21: the certified-convergence gates. (a) audit_demo's
+    divergent arm at CERT_SHAPE in this process with every K1c, K2 and
+    K3 call held against its plain version, then at the demo's width on
+    the CPU and on `dev` (equal reports under a frozen wall clock); (b)
+    multichip_demo's phase B (3 elastic_demo workers of 8 logical
+    devices each at MULTICHIP_SHAPE, each's first kernel calls
+    held, w1 SIGKILLed mid-load) beside its phase A at MULTICHIP_SHAPE in
+    this process; (a) again: its healthy fleet (3 TCP workers, each's
+    first kernel calls held) and its durability leg (the async crash
+    drill and the fabricated log) at once, the law checker (CERT_PAIRS
+    pairs) beside them; (b) phase A at the demo's width on the CPU and on
+    `dev` (equal reports but for the timings, equal digest vectors).
+    Every gate of both demos. Returns the launches of the divergent arm,
+    phase A (with phase B's sequential reference, made beside it) and the
+    fleets' workers."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from antidote_ccrdt_tpu_torch.scripts import audit_demo, multichip_demo, partition_demo
+    from antidote_ccrdt_tpu_torch.scripts.elastic_demo import parse_shape
+    from antidote_ccrdt_tpu_torch.scripts.multihost_demo import launch_counts
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    launches = {n: 0 for n in SOURCES}
+    kernels3 = ("scatter_max_rows_copy", "delta_place", "sort_slots")
+    kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
+
+    def add(got, what):
+        for n, v in got.items():
+            launches[n] += v
+        if on_card:
+            require_launches(got, kernels3, what)
+        return got
+
+    def add_reports(reports, what):
+        got = {n: 0 for n in kernels3}
+        for rep in reports.values():
+            for n, v in rep["launches"].items():
+                got[n] += v
+        return add(got, what)
+
+    # 21a: the divergent arm at CERT_SHAPE, every kernel call held.
+    geo = parse_shape(CERT_SHAPE)
+    held = {}
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with held_against_plain(torch, held):
+        div = audit_demo.run_divergent(dev, geo)
+    div_s = time.perf_counter() - t0
+    got = _since(before)
+    held_calls = {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in kernels3}
+    if on_card and held_calls != {n: got[n] for n in kernels3}:
+        raise AssertionError(f"21a launched {got}, of which held against the plain versions {held_calls}")
+    states = (div["states"]["agree"], div["states"]["first"], div["states"]["wedged"], div["states"]["healed"])
+    if not (div["ok"] and div["p_star"] in div["divergent_parts"] and states == (0, 1, 2, 0)
+            and div["counterexample_parts"] == div["divergent_parts"] and not div["cert"]["ok"]):
+        raise AssertionError(f"21a: the divergent arm {json.dumps(div)[:4000]}")
+    log("21a divergent", card=card, shape=CERT_SHAPE, geometry=geo._asdict(), p_star=div["p_star"],
+        divergent_parts=div["divergent_parts"], counterexample_parts=div["counterexample_parts"],
+        states=div["states"], tta_p50_s=div["tta_p50_s"], counters=div["counters"], cert_ok=div["cert"]["ok"],
+        arm_s=div_s, arm_s_includes="every K1c, K2 and K3 call's plain version",
+        launches=add(got, "21a's divergent arm"), held_against_plain=held)
+    del div
+
+    # The arm at the demo's width: the CPU's plain versions against `dev`.
+    with frozen_wall_clock():
+        small = {d: audit_demo.run_divergent(d) for d in dict.fromkeys(("cpu", dev))}
+    if not small[dev]["ok"] or small["cpu"] != small[dev]:
+        raise AssertionError(f"21a: the demo-width divergent reports differ or fail:\n{json.dumps(small['cpu'])}\n"
+                             f"{json.dumps(small[dev])}")
+    log("21a divergent demo width", card=card, equal_cpu_card=True, p_star=small[dev]["p_star"],
+        divergent_parts=small[dev]["divergent_parts"], signature=small[dev]["cert"]["signature"][:16])
+    del small
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - t0
+
+    def check_held(reports, what):
+        for name, r in reports.items():
+            if set(r["held"]) != {"K1c", "K2", "K3"} or any(v["max_abs_err"] or not v["equal"]
+                                                            for v in r["held"].values()):
+                raise AssertionError(f"{what}: worker {name}'s held calls {r['held']}")
+
+    with tempfile.TemporaryDirectory() as tmp, tempdir_under(tmp), one_thread_workers():
+        rep_dir = {k: os.path.join(tmp, f"reports-{k}") for k in ("healthy", "durability", "mesh")}
+
+        # 21b: phase B at MULTICHIP_SHAPE (each worker's first calls held)
+        # in a thread, phase A at MULTICHIP_SHAPE in this one, at once.
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()  # the workers share the card
+            torch.cuda.reset_peak_memory_stats()
+        mc, a = {}, {}
+        before = launch_counts()
+        t_ab = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            f_mesh = pool.submit(timed, multichip_demo.phase_b, mc, CERT_TIMEOUT_S, dev, rep_dir["mesh"],
+                                 MULTICHIP_SHAPE, hold=True)
+            t0 = time.perf_counter()
+            a_bad = multichip_demo.phase_a(a, dev, partition_demo.parse_shape(MULTICHIP_SHAPE))
+            a_s = time.perf_counter() - t0
+            b_bad, b_s = f_mesh.result()
+        ab_s = time.perf_counter() - t_ab
+        got = _since(before)  # phase A's and phase B's sequential reference's
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        mesh_reports = read_reports(rep_dir["mesh"])
+
+        # 21a's healthy and durability fleets at once, the law checker
+        # beside them.
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t_fleets = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            f_healthy = pool.submit(timed, audit_demo.run_healthy, device=dev, report_dir=rep_dir["healthy"],
+                                    hold=True)
+            f_durability = pool.submit(timed, audit_demo.run_durability, CERT_TIMEOUT_S, dev, rep_dir["durability"])
+            t0 = time.perf_counter()
+            laws = audit_demo.run_laws(CERT_PAIRS, device=dev)
+            laws_s = time.perf_counter() - t0
+            (healthy, healthy_s), (durability, durability_s) = (f.result() for f in (f_healthy, f_durability))
+        fleets_s = time.perf_counter() - t_fleets
+        reports = {k: read_reports(rep_dir[k]) for k in ("healthy", "durability")}
+
+    if not (laws["ok"] and laws["selftest_caught"] and laws["registry_ok"]):
+        raise AssertionError(f"21a: the laws {laws}")
+    log("21a laws", card=card, pairs=CERT_PAIRS, n_types=laws["n_types"], n_law_checks=laws["n_law_checks"],
+        n_law_failures=laws["n_law_failures"], selftest_caught=laws["selftest_caught"], laws_s=laws_s)
+
+    cert = healthy["cert"]
+    if not (healthy["ok"] and cert["ok"] and healthy["verified"] and healthy["wedge_alarms"] == 0):
+        raise AssertionError(f"21a: the healthy fleet {json.dumps({k: v for k, v in healthy.items()})[:4000]}")
+    check_held(reports["healthy"], "21a's healthy fleet")
+    log("21a healthy", card=card, cert_ok=cert["ok"], verified=healthy["verified"], checks=cert["checks"],
+        flight_logs=cert["n_flight_logs"], wedge_alarms=healthy["wedge_alarms"], counters=healthy["counters"],
+        fleet_s=healthy_s, first_apply_ms={n: r["first_apply_ms"] for n, r in reports["healthy"].items()},
+        launches=add_reports(reports["healthy"], "21a's healthy fleet"))
+
+    fleet = durability["fleet"]
+    if not (durability["ok"] and fleet["certifier_checks"].get("durability_watermark") is True
+            and durability["fabricated_flagged"] and not durability["fabricated_cert_ok"]
+            and [x["uncovered"] for x in durability["fabricated_exposures"]] == [[6, 9]]):
+        raise AssertionError(f"21a: the durability leg {json.dumps(durability)[:4000]}")
+    log("21a durability", card=card, fleet=fleet, fabricated_flagged=True,
+        fabricated_exposures=durability["fabricated_exposures"], leg_s=durability_s, fleets_s=fleets_s,
+        launches=add_reports(reports["durability"], "21a's durability fleet"))
+
+    checks_b = multichip_demo.checks_of(b_bad)
+    b_checks = {k: checks_b[k] for k in ("survivors_match_sequential_reference", "every_survivor_ran_ici_reduces",
+                                         "certificate_verifies", "kill_landed_mid_load")}
+    if b_bad or not all(b_checks.values()):
+        raise AssertionError(f"21b: phase B failed {sorted(b_bad)}: {json.dumps(mc)[:4000]}")
+    check_held(mesh_reports, "21b's phase B")
+    log("21b phase B", card=card, shape=MULTICHIP_SHAPE, local_devices=multichip_demo.N_DEVICES,
+        kill_seq=mc["kill_seq"], victim_rc=mc["victim_rc"], checks=b_checks, zones=mc["zones_reported"],
+        survivor_counters=mc["survivor_counters"], certifier_checks=mc["certifier_checks"], fleet_s=b_s,
+        per_worker={n: _worker_numbers(r) for n, r in mesh_reports.items()},
+        held={n: r["held"] for n, r in mesh_reports.items()},
+        launches=add_reports(mesh_reports, "21b's phase B workers"))
+
+    a_checks = {k: v for k, v in multichip_demo.checks_of(a_bad).items()
+                if k in ("partial_ge_5x_smaller", "repair_digests_bit_identical", "shard_local_slices_only")}
+    if a_bad:
+        raise AssertionError(f"21b: phase A failed {a_bad}: {json.dumps(a)[:4000]}")
+    log("21b phase A", card=card, shape=MULTICHIP_SHAPE, mesh=a["mesh"], partitions=multichip_demo.P,
+        p_star=a["p_star"], p_star_ids=a["p_star_ids"], whole_resync_bytes=a["whole_resync_bytes"],
+        partial_resync_bytes=a["partial_resync_bytes"], bytes_ratio=a["bytes_ratio"], checks=a_checks,
+        cross_slice_bytes=a["cross_slice_bytes"], cross_slice_fetches=a["cross_slice_fetches"],
+        shard_digest_slices=a["shard_digest_slices"], ici_reduce_ms_p50=a["ici_reduce_ms_p50"],
+        mesh_merges_per_sec=a["mesh_merges_per_sec"], phase_a_s=a_s, beside_phase_b_s=ab_s,
+        peak_mem_gb=peak_gb, launches=add(got, "21b's phase A"),
+        launches_and_peak_include="phase B's sequential reference, made in this process beside phase A")
+    del a
+
+    # Phase A at the demo's width: the CPU against `dev`.
+    small, vecs = {}, {}
+    for d in dict.fromkeys(("cpu", dev)):
+        small[d] = {}
+        with recorded_digests(vecs.setdefault(d, [])):
+            if multichip_demo.phase_a(small[d], d):
+                raise AssertionError(f"21b: phase A at the demo's width failed on {d}: {json.dumps(small[d])}")
+
+    def steady(r):
+        return {k: v for k, v in r.items() if k not in ("ici_reduce_ms_p50", "mesh_merges_per_sec")}
+
+    if steady(small["cpu"]) != steady(small[dev]) or vecs["cpu"] != vecs[dev] or not vecs[dev]:
+        raise AssertionError(f"21b: the demo-width phase A differs:\n{json.dumps(small['cpu'])}\n"
+                             f"{json.dumps(small[dev])}")
+    log("21b phase A demo width", card=card, equal_cpu_card=True, digest_vectors=len(vecs[dev]),
+        bytes_ratio=small[dev]["bytes_ratio"], partial_resync_bytes=small[dev]["partial_resync_bytes"],
+        whole_resync_bytes=small[dev]["whole_resync_bytes"], phase_s=time.perf_counter() - t_phase)
+    return launches
+
 def main() -> int:
+    import tempfile
+
     sys.path.insert(0, ROOT)
     import torch
 
@@ -5386,9 +5693,12 @@ def main() -> int:
     bridge = phase_bridge(torch, card)
     mesh = phase_mesh(torch, card)
     multihost = phase_multihost(torch, card)
-    elastic = phase_elastic(torch, card)
-    observability = phase_observability(torch, card)
+    with tempfile.TemporaryDirectory() as spill:  # 18a's drill, read again in 19d
+        elastic, drill = phase_elastic(torch, card, spill)
+        observability = phase_observability(torch, card, drill)
+        del drill
     antientropy = phase_antientropy(torch, card)
+    certified = phase_certified(torch, card)
     # `launches` is the count of the path that drives the kernel first
     # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
     # path's own count, each read from 0, is in `launches_by_path`.
@@ -5401,7 +5711,8 @@ def main() -> int:
                       ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh),
                       ("multihost (phase 17)", multihost), ("elastic workers (phase 18)", elastic),
                       ("observability fleets (phase 19)", observability),
-                      ("anti-entropy gates (phase 20)", antientropy)):
+                      ("anti-entropy gates (phase 20)", antientropy),
+                      ("certified convergence (phase 21)", certified)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

@@ -157,10 +157,11 @@ def test_without_a_device_the_worker_names_the_missing_card(tmp_path, module, ex
     assert not os.path.exists(tmp_path / "final-w0.json")
 
 
-def test_chip_smoke_elastic_phase_holds_on_the_cpu():
+def test_chip_smoke_elastic_phase_holds_on_the_cpu(tmp_path):
     """chip_smoke.py's phase 18 at a small width on the CPU: 18a's crash
     drill at ``--shape 4,256,32,8,4,8`` (survivors at the independent
-    sequential reference, their first kernel calls held), 18b's wal and
+    sequential reference, their first kernel calls held, the span plane
+    and the device observatory spilling into the kept root), 18b's wal and
     adopt arms, 18c's TCP drill with its net counters."""
     import runpy
 
@@ -169,5 +170,8 @@ def test_chip_smoke_elastic_phase_holds_on_the_cpu():
     ns = runpy.run_path(os.path.join(REPO, "chip_smoke.py"))
     ns["phase_elastic"].__globals__.update(ELASTIC_SHAPE="4,256,32,8,4,8",
                                            WORKER_ENV=dict(os.environ, OMP_NUM_THREADS="1"))
-    launches = ns["phase_elastic"](torch, "cpu", dev="cpu")
+    launches, drill = ns["phase_elastic"](torch, "cpu", str(tmp_path / "a"), dev="cpu")
     assert set(launches) == set(ns["SOURCES"])  # the CPU's plain versions count nothing
+    assert drill["root"] == str(tmp_path / "a") and sorted(drill["reports"]) == ["w0", "w2"]
+    spills = os.listdir(drill["obs"])
+    assert any(f.startswith("spans-") for f in spills) and any(f.startswith("flight-") for f in spills)

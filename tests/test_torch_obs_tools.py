@@ -34,7 +34,8 @@ from torch_twins import port_copy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ["ccrdt_trace", "ccrdt_spans", "ccrdt_rtrace", "ccrdt_devprof", "ccrdt_audit",
-           "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo"]
+           "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo", "audit_demo",
+           "multichip_demo"]
 
 globals().update(port_copy("test_trace_cli.py", imports=False, replace=[
     ('        "scripts",\n        "ccrdt_trace.py",',
@@ -288,6 +289,7 @@ def test_help_runs_where_jax_cannot_be_imported(name, no_jax):
 @pytest.mark.parametrize("name,args", [
     ("obs_dashboard", ["--demo"]), ("spans_demo", []), ("overlap_demo", []),
     ("ccrdt_audit", ["laws", "--pairs", "2"]), ("partition_demo", []), ("topo_demo", []),
+    ("audit_demo", []), ("multichip_demo", []),
 ])
 def test_without_a_device_the_tool_names_the_missing_card(tmp_path, name, args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO, TMPDIR=str(tmp_path))
@@ -298,8 +300,9 @@ def test_without_a_device_the_tool_names_the_missing_card(tmp_path, name, args):
     assert not os.listdir(tmp_path)  # no fleet started
 
 
-def test_chip_smoke_observability_phase_holds_on_the_cpu(monkeypatch):
-    """chip_smoke.py's phase 19 on the CPU: 19a, 19b, 19d (at ``--shape
+def test_chip_smoke_observability_phase_holds_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's phase 19 on the CPU: 19a, 19b, 19d (over the spill
+    of phase 18a's drill, ``run_spanned_drill`` at ``--shape
     4,256,32,8,4,8``) and 19e whole; from 19c its fleets and its digest
     and counter gates (the 0.30 timing bar is held on the card only). Each
     fleet is killed after 240 s."""
@@ -312,5 +315,6 @@ def test_chip_smoke_observability_phase_holds_on_the_cpu(monkeypatch):
     ns["phase_observability"].__globals__.update(
         ELASTIC_SHAPE="4,256,32,8,4,8", WORKER_ENV=dict(os.environ, OMP_NUM_THREADS="1"),
         OBS_TIMEOUT_S=240.0, ELASTIC_FLEET_TIMEOUT_S=240.0)
-    launches = ns["phase_observability"](torch, "cpu", dev="cpu")
+    drill = ns["run_spanned_drill"](torch, "cpu", str(tmp_path / "a"))
+    launches = ns["phase_observability"](torch, "cpu", drill, dev="cpu")
     assert launches == {n: 0 for n in ns["SOURCES"]}  # the CPU's plain versions count nothing

@@ -20,7 +20,8 @@ REPO = Path(__file__).resolve().parent.parent
 # plane with the audit certifiers, and the overlapped round pipeline
 # with the partition pager, the bridge server and client, the mesh plane,
 # the multi-process plane, the elastic drill worker, the operator's
-# observability tools and the anti-entropy gates; the walk must import each.
+# observability tools, the anti-entropy gates and the certified-convergence
+# gates; the walk must import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -49,10 +50,13 @@ NEW_MODULES = [
     "scripts.ccrdt_audit", "scripts.obs_dashboard", "scripts.spans_demo", "scripts.overlap_demo",
     # the anti-entropy gates
     "scripts.partition_demo", "scripts.topo_demo",
+    # the certified-convergence gates
+    "scripts.audit_demo", "scripts.multichip_demo",
 ]
 WORKER_SCRIPTS = ["elastic_demo", "net_gossip_demo", "crash_recovery_demo",
                   "ccrdt_trace", "ccrdt_spans", "ccrdt_rtrace", "ccrdt_devprof", "ccrdt_audit",
-                  "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo"]
+                  "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo",
+                  "audit_demo", "multichip_demo"]
 
 
 def test_import_pulls_in_no_jax():
