@@ -118,11 +118,12 @@ def run_laws(pairs: int = 32, seed: int = 0, device=None) -> dict:
 
 
 def run_healthy(root: str | None = None, keep: bool = False, device=None, report_dir: str | None = None,
-                hold: bool = False) -> dict:
+                hold: bool = False, reference=None) -> dict:
     """Leg 2: real-process seeded-chaos fleet -> signed certificate. The
-    workers and the reference run on `device`; with `report_dir` each
-    worker writes its ``--report`` there, with `hold` its first kernel
-    calls are held against the plain versions."""
+    workers run on `device`, and so does the sequential reference unless
+    `reference` (``elastic_demo.reference_digest``'s digest) is given;
+    with `report_dir` each worker writes its ``--report`` there, with
+    `hold` its first kernel calls are held against the plain versions."""
     from antidote_ccrdt_tpu_torch.obs import audit as obs_audit
     from antidote_ccrdt_tpu_torch.scripts.elastic_demo import reference_digest
     from antidote_ccrdt_tpu_torch.utils.faults import plan_to_env
@@ -193,7 +194,7 @@ def run_healthy(root: str | None = None, keep: bool = False, device=None, report
         with open(os.path.join(root, f"final-w{i}.json")) as f:
             finals[f"w{i}"] = json.load(f)
     digests = {m: _crc(doc["digest"]) for m, doc in finals.items()}
-    reference = _crc(reference_digest("topk_rmv", device=dev))
+    reference = _crc(reference_digest("topk_rmv", device=dev) if reference is None else reference)
 
     cert = obs_audit.certify(
         obs_dir=obs_dir, digests=digests, reference=reference,
@@ -330,7 +331,7 @@ def fabricated_loss_certificate() -> dict:
     )
 
 
-def run_durability(timeout: float = 240.0, device=None, report_dir: str | None = None) -> dict:
+def run_durability(timeout: float = 240.0, device=None, report_dir: str | None = None, reference=None) -> dict:
     """The durability leg: the durability-watermark axis of the certifier, both
     directions.
 
@@ -350,13 +351,13 @@ def run_durability(timeout: float = 240.0, device=None, report_dir: str | None =
       broken-merge fixture).
 
     The fleet's workers run on `device`; with `report_dir` each writes
-    its ``--report`` there."""
+    its ``--report`` there; `reference` is as `run_healthy`'s."""
     from antidote_ccrdt_tpu_torch.scripts.crash_recovery_demo import run_scenario
 
     if report_dir:
         os.makedirs(report_dir, exist_ok=True)
     fleet = run_scenario("wal", "topk_rmv", timeout, durability="async", device=str(resolve_worker_device(device)),
-                         report_dir=report_dir)
+                         report_dir=report_dir, reference=reference)
 
     cert = fabricated_loss_certificate()
     exposures = cert.get("counterexample", {}).get("durability_exposures", [])

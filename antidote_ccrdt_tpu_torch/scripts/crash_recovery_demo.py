@@ -93,8 +93,11 @@ def _snap_seq(root: str, member: str):
 
 def run_scenario(
     mode: str, type_name: str, timeout: float, durability: str = "group", device=None, report_dir=None,
+    reference=None,
 ) -> dict:
-    """One kill/restart drill; returns a verdict dict (ok + evidence)."""
+    """One kill/restart drill; returns a verdict dict (ok + evidence). The
+    sequential reference runs on `device` unless `reference`
+    (``elastic_demo.reference_digest``'s digest) is given."""
     from antidote_ccrdt_tpu_torch.scripts.elastic_demo import reference_digest
 
     root = tempfile.mkdtemp(prefix=f"crash-{mode}-{durability}-")
@@ -152,7 +155,7 @@ def run_scenario(
 
     # JSON round-trip: digests come back from the workers' final-*.json as
     # lists, the in-process reference may hold tuples.
-    ref = json.loads(json.dumps(reference_digest(type_name, device=device)))
+    ref = json.loads(json.dumps(reference_digest(type_name, device=device) if reference is None else reference))
     finals, bad = {}, []
     for m in MEMBERS:
         path = os.path.join(root, f"final-{m}.json")

@@ -689,7 +689,7 @@ def run_worker(store, drill, dense, state, args, result_dir, report=None):
     plane = serve_mod.install_from_env(dense, args.member, metrics=store.metrics, lag_tracker=lag_tracker)
     # health_extra closes over these cells (the scrape server may call
     # before they are assigned, so the dict — not late locals — carries them)
-    ctx = {"ovl": None, "wal": None, "ingest_step": -1}
+    ctx = {"ovl": None, "wal": None, "ingest_step": -1, "published_step": -1}
 
     def _serve_swap(view, seq) -> None:
         if plane is not None:
@@ -722,6 +722,18 @@ def run_worker(store, drill, dense, state, args, result_dir, report=None):
             return min(5000, 100 * depth)
         return None
 
+    def _durable_seq() -> int:
+        """The WAL's fsync watermark (-1 without a WAL). With the read
+        plane on, no further than the last step whose publish swapped the
+        read replica: a read sent on a durable ack's heels then finds the
+        write (`FleetRouter` never asks a refusing peer again). JAX's
+        worker acks at the fsync alone."""
+        w = ctx["wal"]
+        if w is None:
+            return -1
+        durable = int(w.durable_seq)
+        return min(durable, ctx["published_step"]) if plane is not None else durable
+
     def _ingest_watermarks() -> dict:
         out = {str(k): int(v) for k, v in cursors.items()}
         out[args.member] = int(ctx["ingest_step"])
@@ -731,7 +743,7 @@ def run_worker(store, drill, dense, state, args, result_dir, report=None):
         serve_mod.install_ingest_from_env(
             args.member,
             metrics=store.metrics,
-            durable_fn=lambda: (int(ctx["wal"].durable_seq) if ctx["wal"] is not None else -1),
+            durable_fn=_durable_seq,
             watermarks_fn=_ingest_watermarks,
             pressure_fns=(_wal_pressure, _ovl_pressure),
         )
@@ -1032,6 +1044,7 @@ def run_worker(store, drill, dense, state, args, result_dir, report=None):
                     store.publish(drill.publish_name, view, step)
             if pub is None:
                 _serve_swap(view, step)
+            ctx["published_step"] = step
         feed_lag()
         drop_status(step, owned_snapshot)
         if wal is not None:
@@ -1141,6 +1154,7 @@ def run_worker(store, drill, dense, state, args, result_dir, report=None):
                     if wal is not None and wal.durability != "async":
                         coalescer.flush()  # durable before visible
                     do_publish(store, step)
+                    ctx["published_step"] = step
                     state, _ = do_sweep(store, state)
                 feed_lag()
                 drop_status(step, owned)

@@ -203,6 +203,7 @@ Phases, each printing one line (any failure exits non-zero):
    layout, a second publish is seen, a cursor sweep of an unchanged peer
    merges nothing; every spawned world killed after a timeout; each
    17a worker and each card worker of 17b must launch K1c, K2 and K3;
+   17a's and 17b's worlds (processes only) run beside phase 14c's drill;
 18. elastic workers: the drill workers of
    ``antidote_ccrdt_tpu_torch/scripts/`` as real processes. (a) 3
    ``elastic_demo.py`` workers on the card at the main path's width
@@ -243,9 +244,10 @@ Phases, each printing one line (any failure exits non-zero):
    anchor snapshots beside the steps); (e) ``ccrdt_audit laws`` on the card
    equal byte for byte to the CPU's, ``laws --selftest``, and ``certify
    --final-dir`` and ``verify`` over (b)'s fleet against this process's
-   reference; (a), (b) and (e)'s law checks run at once, (c) alone;
-   the worker reports of (a)-(c) counted, each of them must launch K1c,
-   K2 and K3;
+   reference; (a), (b) and (e)'s law checks at once beside phase 14a's
+   drill, (e)'s certify once (b) is done, (c) alone, then (d)'s reads at
+   once; the worker reports of (a)-(c) counted, each of them must launch
+   K1c, K2 and K3;
 20. anti-entropy gates: (a) a TCP probe (1, 130 and 225 MB deltas between
    two ``TcpTransport``s, landed byte for byte), then
    ``partition_demo.run_drill`` in this process at R = D = 32, 40 000 ids (225 MB a member, the widest anchor under
@@ -266,8 +268,9 @@ Phases, each printing one line (any failure exits non-zero):
    two zones, the za anchor SIGKILLed in the first): every survivor at
    the reference in both legs, cross-zone frames and relays, a failover
    event off the victim, at most half the full mesh's cross-zone sends,
-   each worker's first K1c, K2 and K3 call equal to the plain version;
-   each of (a) and (b) must launch K1c, K2 and K3;
+   each worker's first K1c, K2 and K3 call equal to the plain version,
+   its fleet run beside phase 12's drill; each of (a) and (b) must
+   launch K1c, K2 and K3;
 21. certified convergence: (a) ``audit_demo``'s divergent arm at the
    main path's width in this process (three steps of elastic_demo's
    stream on every replica, a twin with one more add of id 17, each
@@ -275,9 +278,9 @@ Phases, each printing one line (any failure exits non-zero):
    divergent partitions, the watchdog's ok, diverged, wedged, ok, and a
    failed, verified certificate naming exactly the divergent partitions;
    the arm at the demo's width equal on the CPU and the card (a frozen
-   wall clock); later two fleets at once on the card, the law checker
-   (every registered type, 32 pairs, the broken merge caught) beside
-   them: ``run_healthy`` (3 ``net_gossip_demo`` workers at
+   wall clock); two fleets at once on the card (beside phase 14c's
+   drill, after 17's worlds), then the law checker (every registered
+   type, 32 pairs, the broken merge caught): ``run_healthy`` (3 ``net_gossip_demo`` workers at
    elastic_demo's width, seeded ``tcp.send`` drops, 8 partitions, each's
    first kernel calls held: certificate OK and verified, no wedge alarm),
    ``run_durability`` (the async wal crash drill certified with its
@@ -293,9 +296,22 @@ Phases, each printing one line (any failure exits non-zero):
    then at the demo's width equal on the CPU and the card, digest vectors
    included; each of the divergent arm, the fleets and phase A must
    launch K1c, K2 and K3;
-22. the kernels line (launches on each path that drives a kernel, phases
-   9-21 included; phase 17's are its workers' and its sites', not the
-   reference's; phases 18-21 their card workers', 20a's drill, 21a's
+22. write tier: ``write_tier_demo`` whole as a subprocess on the card:
+   4 ``net_gossip_demo`` workers (serve and ingest planes, a crash WAL
+   each, seeded ``tcp.send`` drops and ``serve.write`` delays) at R = D =
+   32, 10 000 ids, K = 100, M = 4 (18a's Zipf stream, 56 MB a worker,
+   the slowed detector of 18a), each worker's first K1c, K2 and K3 call
+   held, 3 write sessions through a ``WriteRouter`` (``router.write``
+   drops, acks ``durable`` and ``replicated_to_k``, each ack read back
+   through a ``FleetRouter``), the hot key's owner SIGKILLed at step 10
+   of 24 (the demo's steps and pacing; its kill at 13); gates: all 17 of
+   the demo's checks, the SIGKILL mid-load after hard acks from the
+   victim, each survivor's launches of K1c, K2 and K3 and its held calls
+   equal to the plain versions, the honest and session certificates
+   verified, the violating arm's counterexample naming [8, 20];
+23. the kernels line (launches on each path that drives a kernel, phases
+   9-22 included; phase 17's are its workers' and its sites', not the
+   reference's; phases 18-22 their card workers', 20a's drill, 21a's
    divergent arm and 21b's phase A with phase B's reference), then the
    ok line.
 
@@ -419,12 +435,13 @@ PIPE_MEMBERS, PIPE_STEPS, PIPE_TAIL = ("p0", "p1", "p2"), 3, 20
 # width: 3 workers on FsTransport, P = 32 partitions, each pager's budget a
 # tenth of the state, the demo's add-only batches (96 Zipf(2.2) ids a
 # replica and step, seeded per (seed, step, replica)), `ensure_resident`
-# before every apply, hit counters reset after step 2, a tail of at most
-# 80 rounds; the demo's gates. Replica rows split over the workers as
-# phase 12 splits them. Cut from the demo's 10 steps to 4 for time: each
-# step of each arm publishes and sweeps 563 MB anchors on the host; the
-# hit rates count the accesses after step 2's warm-up.
-WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w2"), 4, 2, 80, 32, 2.2, 7
+# before every apply, hit counters reset after step WS_WARM, a tail of at
+# most 80 rounds; the demo's gates. Replica rows split over the workers as
+# phase 12 splits them. Cut from the demo's 10 steps to 3 for time (each
+# step of each arm publishes and sweeps 563 MB anchors on the host), its
+# warm-up from 2 steps to 1, so that one step's accesses are counted, as
+# at 4 steps after a warm-up of 2.
+WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w2"), 3, 1, 80, 32, 2.2, 7
 WS_B, WS_BR, WS_MIN_HIT, WS_MIN_RATIO = 96, 8, 0.9, 10.0
 # The reduced widths (R, I, B, Br) of the CPU == card runs of 14a and 14c.
 OVERLAP_SMALL, WS_SMALL = GOSSIP_SMALL, (4, 4_096, WS_B, WS_BR)
@@ -472,8 +489,9 @@ MESH_CHAOS_GEO, MESH_CHAOS_K, MESH_CHAOS_M, MESH_CHAOS_SEED = (4, 64, 32, 8), 8,
 # card. Every world is killed after MULTIHOST_TIMEOUT_S.
 MULTIHOST_PROCS, MULTIHOST_LOCAL, MULTIHOST_TIMEOUT_S = 2, 16, 300.0
 SITE_DCS = (4, 2)
-# The environment of the spawned workers (None: this process's).
-WORKER_ENV = None
+# The environment of the spawned workers (None: this process's), and how
+# long a fleet past its time limit has after SIGTERM before SIGKILL.
+WORKER_ENV, TERM_GRACE_S = None, 30.0
 # Phase 18, the elastic drill workers as real processes
 # (antidote_ccrdt_tpu_torch/scripts/). 18a: ELASTIC_MEMBERS workers of
 # elastic_demo.py at ELASTIC_SHAPE (the main path's width: R = D = 32,
@@ -541,6 +559,23 @@ TOPO_TIMEOUT, AE_TIMEOUT_S = 0.5, 600.0
 # phase A. Then the healthy and durability fleets at once. Each fleet is
 # killed after CERT_TIMEOUT_S.
 CERT_SHAPE, CERT_PAIRS, MULTICHIP_SHAPE, CERT_TIMEOUT_S = "main", 32, "main", 300.0
+# Phase 22, the fleet write tier: write_tier_demo of antidote_ccrdt_tpu_torch/scripts/
+# whole as a subprocess: 4 net_gossip_demo workers (the serve and ingest
+# planes, a crash WAL each, the demo's seeded faults) at WRITE_SHAPE (R = D
+# = 32, 10 000 ids, K = 100, M = 4, 18a's Zipf stream of 32 768 adds and
+# 2 048 removals a replica and step, 56 MB a worker) with multichip_demo's
+# WIDE_WORKER_ARGS, every worker's first K1c, K2 and K3 call held, 3 writer
+# sessions through a WriteRouter, the hot key's owner SIGKILLed at step
+# WRITE_KILL_AT of WRITE_STEPS, WRITE_STEP_SLEEP s between steps (the
+# demo's 24 steps, its kill at 13 and its 1 s; 24 * 32 768 adds stay below
+# the writers' 900 000 ts base). 10 000 ids, not
+# the 40 000 of the widest anchor under MAX_FRAME: at 40 000 every worker's
+# host stage (a 225 MB WAL checkpoint, record and publish each step) fell
+# behind its steps and the durable acks missed the ingest plane's 8 s
+# deadline, whether acked at the fsync or after the publish; at 20 000 the
+# phase took 101-125 s against 74-89 s at 10 000 (PERF.md section 4). The
+# demo is stopped after WRITE_TIMEOUT_S.
+WRITE_SHAPE, WRITE_STEPS, WRITE_KILL_AT, WRITE_STEP_SLEEP, WRITE_TIMEOUT_S = "32,10000,32768,2048,4,100", 24, 13, 1.0, 480.0
 # 20a's TCP probe: a delta of each size (MB) sent between two TcpTransports
 # on 127.0.0.1 (1 MB opens the link; 130 MB is the drill's last
 # pre-outage delta, 225 MB its anchor).
@@ -3393,12 +3428,13 @@ def check_working_set(out: dict, what: str) -> dict:
     return c
 
 
-def phase_overlap_pager(torch, card: str, dev: str = "cuda") -> dict:
+def phase_overlap_pager(torch, card: str, dev: str = "cuda", before_14c=None) -> dict:
     """Phase 14: the overlapped drill (14a), serial against overlapped
     rounds with live threads (14b), the overcommitted working set (14c),
     and 14a and 14c at reduced widths on the CPU and the card with equal
-    states, digests and counters. Returns the phase's K1c, K2 and K3
-    launches (14a-c at the main path's width)."""
+    states, digests and counters; `before_14c`, if given, is called as 14c
+    begins. Returns the phase's K1c, K2 and K3 launches (14a-c at the main
+    path's width)."""
     from antidote_ccrdt_tpu_torch.ops import kernels
     from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
     from antidote_ccrdt_tpu_torch.utils.benchtime import sync
@@ -3486,6 +3522,8 @@ def phase_overlap_pager(torch, card: str, dev: str = "cuda") -> dict:
     gc.collect()
 
     # 14c: the overcommitted working set, then its all-resident arm.
+    if before_14c is not None:
+        before_14c()
     base = peak_start()
     held, timing = {}, {"full_state_ms": [], "cold_fold_ms": [], "publish_ms": [], "sweep_ms": []}
     ws = run_working_set(torch, dev, (R, I, WS_B, WS_BR), spans=True, held=held, launches=wrappers,
@@ -4620,21 +4658,50 @@ def run_sites(torch, dev: str, root: str) -> dict:
     return out
 
 
-def phase_multihost(torch, card: str, dev: str = "cuda") -> dict:
+def run_worlds(dev: str, root: str) -> dict:
+    """Phase 17's worlds, all at once (only processes: no kernel runs in
+    this process): 17a's MULTIHOST_PROCS workers at the main path's width
+    on `dev`, their DCP checkpoint saved under `root`, and 17b's worlds
+    (the JAX test's, on the CPU, on `dev` and as one nccl process; on the
+    CPU a one-process gloo world for the nccl one). Returns 17a's reports
+    and seconds, 17b's worlds, their reports and blocks, and `root`."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    on_card = str(dev).startswith("cuda")
+    worlds = {"cpu": ("cpu", 2, 4, "gloo")}
+    worlds.update({"card": (dev, 2, 4, "gloo"), "nccl": (dev, 1, 8, "nccl")} if on_card else
+                  {"one": ("cpu", 1, 8, "gloo")})
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(worlds) + 1) as pool:
+        f_a = pool.submit(timed, run_multihost_world, dev, MULTIHOST_PROCS, MULTIHOST_LOCAL,
+                          f"{I},{B},{BR},{M},{K}", root, "a", ckpt=True)
+        futs = {name: pool.submit(run_multihost_world, d, n, loc, "small", root, f"b-{name}", backend=be)
+                for name, (d, n, loc, be) in worlds.items()}
+        small = {name: f.result() for name, f in futs.items()}
+        (reports, _), world_s = f_a.result()
+    return dict(reports=reports, world_s=world_s, worlds=worlds, small=small, worlds_s=time.perf_counter() - t0,
+                root=root)
+
+
+def phase_multihost(torch, card: str, worlds: dict, dev: str = "cuda") -> dict:
     """Phase 17: the multi-process plane. (a) MULTIHOST_PROCS workers on
     the card reconcile one round of phase 4's stream and save it with DCP;
     the checkpoint, restored whole onto another layout, must equal PR 13's
     single-process hierarchical reduce over (MULTIHOST_PROCS,
     MULTIHOST_LOCAL) logical devices leaf for leaf, and its observable the
     sequential fold's; (b) the JAX test's world on the CPU, on the card and
-    as one nccl process, equal; (c) `run_sites`. The reference's apply and
-    reduce run again with every K1c, K2 and K3 call held against its plain
-    version. Returns the path's launches for every kernel line: the
-    workers' (17a and 17b's card worlds) and 17c's sites'; the reference's
-    and the held runs' are left out. Each 17a worker must launch K1c, K2
-    and K3."""
+    as one nccl process, equal; (c) `run_sites`. (a) and (b)'s worlds are
+    `worlds`, `run_worlds`' (main() runs them beside an earlier phase). The reference's apply and reduce run again with every K1c, K2
+    and K3 call held against its plain version. Returns the path's
+    launches for every kernel line: the workers' (17a and 17b's card
+    worlds) and 17c's sites'; the reference's and the held runs' are left
+    out. Each 17a worker must launch K1c, K2 and K3."""
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -4663,10 +4730,8 @@ def phase_multihost(torch, card: str, dev: str = "cuda") -> dict:
             launches[n] += v
 
     with tempfile.TemporaryDirectory() as tmp:
-        # 17a: the world at the main path's width.
-        t0 = time.perf_counter()
-        reports, _ = run_multihost_world(dev, MULTIHOST_PROCS, local, f"{I},{B},{BR},{M},{K}", tmp, "a", ckpt=True)
-        world_s = time.perf_counter() - t0
+        # 17a: the world at the main path's width (and 17b's worlds).
+        reports, world_s, ckpt_root = worlds["reports"], worlds["world_s"], worlds["root"]
         for rep in reports:
             add(rep["launches"])
         idle = [(rep["pid"], n) for rep in reports for n, v in rep["launches"].items() if v < 1]
@@ -4696,7 +4761,7 @@ def phase_multihost(torch, card: str, dev: str = "cuda") -> dict:
         other = dist.NamedSharding(dist.make_mesh(SITE_DCS[0], 1, devices=[dev] * SITE_DCS[0]), dist.P("dc", "key"))
         like = tree_map(lambda a: dist.ShapeDtypeStruct(a.shape, a.dtype, sharding=other), applied)
         t0 = time.perf_counter()
-        with DenseCheckpointManager(os.path.join(tmp, "a-ckpt")) as mgr:
+        with DenseCheckpointManager(os.path.join(ckpt_root, "a-ckpt")) as mgr:
             restored = mgr.restore(like)
         wait()
         restore_s = time.perf_counter() - t0
@@ -4732,30 +4797,23 @@ def phase_multihost(torch, card: str, dev: str = "cuda") -> dict:
             torch.cuda.empty_cache()
 
         # 17b: the JAX test's world on the CPU, on the card, and one nccl process.
-        t_b = time.perf_counter()
-        worlds = {"cpu": ("cpu", 2, 4, "gloo")}
-        worlds.update({"card": (dev, 2, 4, "gloo"), "nccl": (dev, 1, 8, "nccl")} if on_card else
-                      {"one": ("cpu", 1, 8, "gloo")})
-        with ThreadPoolExecutor(len(worlds)) as pool:
-            futs = {name: pool.submit(run_multihost_world, d, n, loc, "small", tmp, f"b-{name}", backend=be)
-                    for name, (d, n, loc, be) in worlds.items()}
-            small = {name: f.result() for name, f in futs.items()}
+        small, worlds_def = worlds["small"], worlds["worlds"]
         whole = {name: {p: np.concatenate([blk[p] for blk in blocks]) for p in blocks[0]}
                  for name, (_reps, blocks) in small.items()}
-        for name in worlds:
+        for name in worlds_def:
             if name != "cpu" and not all((whole[name][p] == whole["cpu"][p]).all() and
                                          whole[name][p].dtype == whole["cpu"][p].dtype for p in whole["cpu"]):
                 raise AssertionError(f"17b: the {name} world differs from the CPU world")
         for name, (reps, _blocks) in small.items():
-            if worlds[name][0] != "cpu":
+            if worlds_def[name][0] != "cpu":
                 for rep in reps:
                     add(rep["launches"])
                     if any(v < 1 for v in rep["launches"].values()):
                         raise AssertionError(f"17b: worker {rep['pid']} of the {name} world launched {rep['launches']}")
         log("17 reduced", card=card, worlds={n: dict(device=d, processes=k, local_devices=loc, backend=be)
-                                             for n, (d, k, loc, be) in worlds.items()},
+                                             for n, (d, k, loc, be) in worlds_def.items()},
             reconcile_ms={n: [rep["reconcile_ms"] for rep in reps] for n, (reps, _b) in small.items()},
-            equal_across_worlds=True, reduced_s=time.perf_counter() - t_b)
+            equal_across_worlds=True, worlds_s=worlds["worlds_s"])
 
         # 17c: cross-site gossip at the main path's width.
         t_c = time.perf_counter()
@@ -4786,7 +4844,9 @@ def run_procs(cmds: dict, root: str, timeout_s: float, env=None) -> dict:
     run from the repository root, each in a session of its own, with the
     further environment `env`), and wait for all: {name: dict(rc, out,
     spawn_t, exit_t)} on the wall clock. A fleet that outlives `timeout_s`
-    is killed, every process group of it, and raises."""
+    is killed, every process group of it, and raises: each group gets
+    SIGTERM and TERM_GRACE_S to end (a supervisor whose workers run in
+    sessions of their own then kills them), then SIGKILL."""
     import signal
 
     env = _worker_env(env)
@@ -4812,6 +4872,14 @@ def run_procs(cmds: dict, root: str, timeout_s: float, env=None) -> dict:
         if late:
             raise AssertionError(f"a fleet outlived {timeout_s} s: {late} still running")
     finally:
+        if any(p.poll() is None for p in procs.values()):
+            for p in procs.values():
+                if p.poll() is None:
+                    with contextlib.suppress(ProcessLookupError):
+                        os.killpg(p.pid, signal.SIGTERM)
+            deadline = time.monotonic() + TERM_GRACE_S
+            while time.monotonic() < deadline and any(p.poll() is None for p in procs.values()):
+                time.sleep(0.1)
         for p in procs.values():
             if p.poll() is None:
                 with contextlib.suppress(ProcessLookupError):
@@ -5126,7 +5194,56 @@ def read_step_loop(recs: list, steps: int) -> dict:
                 gossip_send_max_ms=max(sends, default=None))
 
 
-def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dict:
+def demo_reference_crc(torch) -> int:
+    """The crc32 of elastic_demo's sequential reference at the demo's
+    width (computed on the CPU: no kernel launches), as 19e's certify
+    reads it."""
+    from antidote_ccrdt_tpu_torch.scripts.elastic_demo import parse_shape
+
+    ref = gossip_reference(torch, "cpu", parse_shape("demo"))
+    return zlib.crc32(json.dumps(ref, sort_keys=True).encode("utf-8")) & 0xFFFFFFFF
+
+
+def run_obs_fleets(dev: str, root: str, crc: int) -> dict:
+    """Phase 19's fleets and law checks, all at once under `root` (only
+    processes: no kernel runs in this process): (a) obs_dashboard --demo,
+    (b) spans_demo, (e) ccrdt_audit laws on `dev` and on the CPU and
+    --selftest, and (e)'s certify and verify of (b)'s fleet against
+    `crc` once (b) is done. None of them gates a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    a_root, b_root = os.path.join(root, "a"), os.path.join(root, "b")
+    os.makedirs(a_root)
+    os.makedirs(b_root)
+    cert = os.path.join(b_root, "cert.json")
+
+    def certify_and_verify(fb):
+        b = fb.result()
+        (fleet_dir,) = [os.path.join(b_root, x) for x in os.listdir(b_root) if x.startswith("spans-demo-")]
+        doc = json.loads(cli_out(run_cli("ccrdt_audit", "certify", os.path.join(fleet_dir, "obs"), "--final-dir",
+                                         fleet_dir, "--reference", "%08x" % crc, "--out", cert, "--json"),
+                                 "19e certify"))
+        return dict(b, fleet_dir=fleet_dir), doc, json.loads(cli_out(run_cli("ccrdt_audit", "verify", cert, "--json"),
+                                                                     "19e verify"))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(6) as pool:
+        fa = pool.submit(run_demo, "obs_dashboard", a_root, dev, "--demo")
+        fb = pool.submit(run_demo, "spans_demo", b_root, dev)
+        f_cert = pool.submit(certify_and_verify, fb)
+        f_laws = {where: pool.submit(run_cli, "ccrdt_audit", "laws", "--device", where, "--json")
+                  for where in dict.fromkeys((dev, "cpu"))}
+        f_self = pool.submit(run_cli, "ccrdt_audit", "laws", "--selftest", "--device", dev)
+        laws = {where: cli_out(f.result(), f"19e laws --device {where}") for where, f in f_laws.items()}
+        selftest = cli_out(f_self.result(), "19e laws --selftest")
+        laws_s = time.perf_counter() - t0
+        a = fa.result()
+        b, cert_doc, verify = f_cert.result()
+    return dict(a=a, b=b, laws=laws, selftest=selftest, laws_s=laws_s, cert_doc=cert_doc, verify=verify,
+                fleets_s=time.perf_counter() - t0)
+
+
+def phase_observability(torch, card: str, drill: dict, fleets: dict, dev: str = "cuda") -> dict:
     """Phase 19: the operator's observability tools of
     antidote_ccrdt_tpu_torch/scripts as subprocesses. (a) obs_dashboard
     --demo and (b) spans_demo, beside (e)'s law checks; (c) overlap_demo
@@ -5136,13 +5253,14 @@ def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dic
     device observatory on) read by ccrdt_spans merge and attribute,
     ccrdt_trace summary and ccrdt_devprof churn and watermarks, at once;
     (e) ccrdt_audit laws on `dev` equal byte for byte to the CPU's, the
-    selftest, and certify and verify over 19b's fleet. Returns the workers'
-    launches (19a-c's reports; 18a's are phase 18's)."""
+    selftest, and certify and verify over 19b's fleet. (a), (b) and (e)
+    are `fleets`, `run_obs_fleets`' (main() runs them beside an earlier
+    phase). Returns the workers' launches (19a-c's reports; 18a's
+    are phase 18's)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     from antidote_ccrdt_tpu_torch.obs import spans as obs_spans
-    from antidote_ccrdt_tpu_torch.scripts.elastic_demo import parse_shape
 
     on_card = torch.device(dev).type == "cuda"
     t_phase = time.perf_counter()
@@ -5163,21 +5281,8 @@ def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dic
         return got
 
     with tempfile.TemporaryDirectory() as tmp:
-        # 19a, 19b and 19e's law checks at once: none of them gates a time.
-        root, b_root = os.path.join(tmp, "a"), os.path.join(tmp, "b")
-        os.makedirs(root)
-        os.makedirs(b_root)
-        t_laws = time.perf_counter()
-        with ThreadPoolExecutor(5) as pool:
-            fa = pool.submit(run_demo, "obs_dashboard", root, dev, "--demo")
-            fb = pool.submit(run_demo, "spans_demo", b_root, dev)
-            f_laws = {where: pool.submit(run_cli, "ccrdt_audit", "laws", "--device", where, "--json")
-                      for where in dict.fromkeys((dev, "cpu"))}
-            f_self = pool.submit(run_cli, "ccrdt_audit", "laws", "--selftest", "--device", dev)
-            laws = {where: cli_out(f.result(), f"19e laws --device {where}") for where, f in f_laws.items()}
-            selftest = cli_out(f_self.result(), "19e laws --selftest")
-            laws_s = time.perf_counter() - t_laws
-            a, b = fa.result(), fb.result()
+        a, b, laws, selftest = fleets["a"], fleets["b"], fleets["laws"], fleets["selftest"]
+        cert_doc, verify, fleet_dir = fleets["cert_doc"], fleets["verify"], fleets["b"]["fleet_dir"]
 
         # 19a: the dashboard's demo, its scrape and complete-path checks.
         ok = [ln for ln in a["out"].splitlines() if ln.startswith("OK: ")]
@@ -5185,7 +5290,6 @@ def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dic
             launches=add(a["reports"], "19a's workers"))
 
         # 19b: the span plane's demo and its gates.
-        (fleet_dir,) = [os.path.join(b_root, d) for d in os.listdir(b_root) if d.startswith("spans-demo-")]
         by_member = obs_spans.scan_dir(os.path.join(fleet_dir, "obs"))
         att = obs_spans.attribute(by_member)
         log("19b spans", card=card, demo_s=b["s"], coverage_p50=att["fleet"]["coverage_p50"],
@@ -5200,7 +5304,7 @@ def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dic
         os.makedirs(root)
         if on_card:  # the whole demo, its 0.30 bar included
             c = run_demo("overlap_demo", root, dev)
-            fleets = [dict(e2e_ms_p50=float(f[1]), gap_ms_p50=float(f[4])) for f in SPANS_FLEET_LINE.findall(c["out"])]
+            arms = [dict(e2e_ms_p50=float(f[1]), gap_ms_p50=float(f[4])) for f in SPANS_FLEET_LINE.findall(c["out"])]
             red = re.search(r"\(([+-][\d.]+)% vs the", c["out"])
             c.update(reduction_pct=float(red.group(1)) if red else None, bar_held=True)
         else:  # the demo's fleets and its digest and counter gates
@@ -5212,42 +5316,30 @@ def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dic
                 runs = overlap_demo.run_arms(dev, rep_dir)
             if overlap_demo.check_convergence(runs, dev) != 0:
                 raise AssertionError("19c: the overlap fleets' digests or counters failed")
-            fleets = [runs[label][0]["fleet"] for label in ("serial", "overlap")]
+            arms = [runs[label][0]["fleet"] for label in ("serial", "overlap")]
             c = dict(s=time.perf_counter() - t_c, reports=read_reports(rep_dir), reduction_pct=None, bar_held=False)
         log("19c overlap", card=card, demo_s=c["s"], reduction_pct=c["reduction_pct"], bar_held=c["bar_held"],
-            e2e_p50_ms=dict(zip(("serial", "overlap"), (f["e2e_ms_p50"] for f in fleets))),
-            gap_p50_ms=dict(zip(("serial", "overlap"), (f["gap_ms_p50"] for f in fleets))),
+            e2e_p50_ms=dict(zip(("serial", "overlap"), (f["e2e_ms_p50"] for f in arms))),
+            gap_p50_ms=dict(zip(("serial", "overlap"), (f["gap_ms_p50"] for f in arms))),
             launches=add(c["reports"], "19c's workers"))
 
         # 19d: phase 18a's drill, its step loop read through the spans; the
-        # five reads at once, beside 19e's certify and verify of 19b's fleet.
-        d, root, obs = drill, drill["root"], drill["obs"]
+        # five reads at once.
+        d, obs = drill, drill["obs"]
         survivors = sorted(d["reports"])
         trace = os.path.join(tmp, "spans_trace.json")
         t_d = time.perf_counter()
-        ref = gossip_reference(torch, dev, parse_shape("demo"))
-        crc = zlib.crc32(json.dumps(ref, sort_keys=True).encode("utf-8")) & 0xFFFFFFFF
-        cert = os.path.join(b_root, "cert.json")
-
-        def certify_and_verify():
-            doc = json.loads(cli_out(run_cli("ccrdt_audit", "certify", os.path.join(fleet_dir, "obs"), "--final-dir",
-                                             fleet_dir, "--reference", "%08x" % crc, "--out", cert, "--json"),
-                                     "19e certify"))
-            return doc, json.loads(cli_out(run_cli("ccrdt_audit", "verify", cert, "--json"), "19e verify"))
-
-        with ThreadPoolExecutor(6) as pool:
-            f_cert = pool.submit(certify_and_verify)
+        with ThreadPoolExecutor(5) as pool:
             f_merge = pool.submit(run_cli, "ccrdt_spans", "merge", obs, "-o", trace)
             f_att = pool.submit(run_cli, "ccrdt_spans", "attribute", obs, "--json")
             f_summary = pool.submit(run_cli, "ccrdt_trace", "summary", obs, "--json")
             f_churn = pool.submit(run_cli, "ccrdt_devprof", "churn", obs, "--json")
-            f_marks = pool.submit(run_cli, "ccrdt_devprof", "watermarks", root)
+            f_marks = pool.submit(run_cli, "ccrdt_devprof", "watermarks", drill["root"])
             merge_out = cli_out(f_merge.result(), "19d ccrdt_spans merge")
             d_att = json.loads(cli_out(f_att.result(), "19d ccrdt_spans attribute"))
             summary = json.loads(cli_out(f_summary.result(), "19d ccrdt_trace summary"))
             churn = f_churn.result()
             marks = cli_out(f_marks.result(), "19d ccrdt_devprof watermarks")
-            cert_doc, verify = f_cert.result()
         reads_s = time.perf_counter() - t_d
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
@@ -5279,8 +5371,8 @@ def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dic
             drill="phase 18a's (its launches counted there)", converged=True)
         gc.collect()
 
-        # 19e: the law checker on the card and the CPU (run beside 19a and
-        # 19b), the certificate of 19b's fleet (made beside 19d's reads).
+        # 19e: the law checker on the card and the CPU and the certificate
+        # of 19b's fleet (made beside 19a and 19b).
         if laws[dev] != laws["cpu"]:
             raise AssertionError(f"19e: the law reports differ:\n{laws[dev][:2000]}\n{laws['cpu'][:2000]}")
         law_doc = json.loads(laws[dev])
@@ -5294,22 +5386,42 @@ def phase_observability(torch, card: str, drill: dict, dev: str = "cuda") -> dic
             pairs=law_doc["pairs"], card_equals_cpu=on_card, selftest_caught=True,
             certificate=dict(checks=cert_doc["checks"], flight_logs=cert_doc["n_flight_logs"],
                              signature=cert_doc["signature"][:16]),
-            verify=verify, laws_s=laws_s, certify_and_reads_s=reads_s, phase_s=time.perf_counter() - t_phase)
+            verify=verify, laws_s=fleets["laws_s"], fleets_s=fleets["fleets_s"],
+            phase_s=time.perf_counter() - t_phase)
     return launches
 
 
-def phase_antientropy(torch, card: str, dev: str = "cuda") -> dict:
+def run_topo(dev: str) -> dict:
+    """20b's fleet: topo_demo whole as a subprocess on `dev` with --hold
+    (only processes: no kernel runs in this process), killed after
+    AE_TIMEOUT_S; it must exit 0. Its output, report, workers' reports and
+    seconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rep_dir, doc_path = os.path.join(tmp, "reports"), os.path.join(tmp, "topo.json")
+        t_b = time.perf_counter()
+        run = run_procs({"topo_demo": ["-m", TOOLS + "topo_demo", "--device", dev, "--hold", "--report-dir", rep_dir,
+                                       "--timeout", str(TOPO_TIMEOUT), "--out", doc_path]},
+                        tmp, AE_TIMEOUT_S, env={"TMPDIR": tmp})["topo_demo"]
+        demo_s = time.perf_counter() - t_b
+        if run["rc"] != 0:
+            raise AssertionError(f"20b: topo_demo exited {run['rc']}:\n{run['out'][-8000:]}")
+        with open(doc_path) as f:
+            doc = json.load(f)
+        return dict(out=run["out"], doc=doc, reports=read_reports(rep_dir), demo_s=demo_s)
+
+
+def phase_antientropy(torch, card: str, topo: dict, dev: str = "cuda") -> dict:
     """Phase 20: the anti-entropy gates. (a) the TCP probe, then
     partition_demo.run_drill in this process at AE_SHAPE with every K1c,
     K2 and K3 call held against its plain version: all seven of the demo's
     checks, and w2's pre-outage margin logged; then the drill at
     the demo's width on the CPU and on `dev`, equal reports but for the
-    counters that hang on thread timing. (b) topo_demo whole as a
-    subprocess on `dev` with --hold: every gate of the demo, each worker's
-    first K1c, K2 and K3 calls equal to the plain versions. Returns the
-    launches of 20a's drill and of 20b's workers."""
-    import tempfile
-
+    counters that hang on thread timing. (b) topo_demo's fleet (`topo`,
+    `run_topo`'s; main() runs it beside an earlier phase): every gate of
+    the demo, each worker's first K1c, K2 and K3 calls equal to the plain
+    versions. Returns the launches of 20a's drill and of 20b's workers."""
     from antidote_ccrdt_tpu_torch.scripts import partition_demo
     from antidote_ccrdt_tpu_torch.scripts.multihost_demo import launch_counts
 
@@ -5384,22 +5496,8 @@ def phase_antientropy(torch, card: str, dev: str = "cuda") -> dict:
     del small
 
     # 20b: topo_demo whole, each worker's first kernel calls held.
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()  # the workers share the card
-    with tempfile.TemporaryDirectory() as tmp:
-        rep_dir, doc_path = os.path.join(tmp, "reports"), os.path.join(tmp, "topo.json")
-        t_b = time.perf_counter()
-        run = run_procs({"topo_demo": ["-m", TOOLS + "topo_demo", "--device", dev, "--hold", "--report-dir", rep_dir,
-                                       "--timeout", str(TOPO_TIMEOUT), "--out", doc_path]},
-                        tmp, AE_TIMEOUT_S, env={"TMPDIR": tmp})["topo_demo"]
-        demo_s = time.perf_counter() - t_b
-        if run["rc"] != 0:
-            raise AssertionError(f"20b: topo_demo exited {run['rc']}:\n{run['out'][-8000:]}")
-        with open(doc_path) as f:
-            doc = json.load(f)
-        reports = read_reports(rep_dir)
-    legs_s = [float(x) for x in re.findall(r"leg seconds: ([\d.]+)", run["out"])]
+    doc, reports, demo_s = topo["doc"], topo["reports"], topo["demo_s"]
+    legs_s = [float(x) for x in re.findall(r"leg seconds: ([\d.]+)", topo["out"])]
     b_got = {n: 0 for n in kernels3}
     for name, r in reports.items():
         if set(r["held"]) != {"K1c", "K2", "K3"} or any(v["max_abs_err"] or not v["equal"]
@@ -5455,7 +5553,36 @@ def one_thread_workers():
             os.environ.pop("OMP_NUM_THREADS", None)
 
 
-def phase_certified(torch, card: str, dev: str = "cuda") -> dict:
+def run_cert_fleets(dev: str, reference) -> dict:
+    """21a's two fleets at once on `dev`, one CPU thread a worker:
+    audit_demo's healthy TCP fleet, each worker's first kernel calls held,
+    and its durability leg (the async crash drill and the fabricated log),
+    both held to `reference` (elastic_demo.reference_digest's, made
+    beforehand on the CPU): only processes, no kernel runs in this
+    process. Their results, seconds and worker reports."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from antidote_ccrdt_tpu_torch.scripts import audit_demo
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp, one_thread_workers():
+        rep_dir = {k: os.path.join(tmp, f"reports-{k}") for k in ("healthy", "durability")}
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            f_healthy = pool.submit(timed, audit_demo.run_healthy, device=dev, report_dir=rep_dir["healthy"],
+                                    hold=True, reference=reference)
+            f_durability = pool.submit(timed, audit_demo.run_durability, CERT_TIMEOUT_S, dev, rep_dir["durability"],
+                                       reference=reference)
+            (healthy, healthy_s), (durability, durability_s) = (f.result() for f in (f_healthy, f_durability))
+        return dict(healthy=healthy, healthy_s=healthy_s, durability=durability, durability_s=durability_s,
+                    fleets_s=time.perf_counter() - t0, reports={k: read_reports(d) for k, d in rep_dir.items()})
+
+
+def phase_certified(torch, card: str, fleets: dict, dev: str = "cuda") -> dict:
     """Phase 21: the certified-convergence gates. (a) audit_demo's
     divergent arm at CERT_SHAPE in this process with every K1c, K2 and
     K3 call held against its plain version, then at the demo's width on
@@ -5465,8 +5592,9 @@ def phase_certified(torch, card: str, dev: str = "cuda") -> dict:
     held, w1 SIGKILLed mid-load) beside its phase A at MULTICHIP_SHAPE in
     this process; (a) again: its healthy fleet (3 TCP workers, each's
     first kernel calls held) and its durability leg (the async crash
-    drill and the fabricated log) at once, the law checker (CERT_PAIRS
-    pairs) beside them; (b) phase A at the demo's width on the CPU and on
+    drill and the fabricated log), `fleets` (`run_cert_fleets`'; main()
+    runs them beside an earlier phase), then the law checker
+    (CERT_PAIRS pairs); (b) phase A at the demo's width on the CPU and on
     `dev` (equal reports but for the timings, equal digest vectors).
     Every gate of both demos. Returns the launches of the divergent arm,
     phase A (with phase B's sequential reference, made beside it) and the
@@ -5546,7 +5674,7 @@ def phase_certified(torch, card: str, dev: str = "cuda") -> dict:
                 raise AssertionError(f"{what}: worker {name}'s held calls {r['held']}")
 
     with tempfile.TemporaryDirectory() as tmp, tempdir_under(tmp), one_thread_workers():
-        rep_dir = {k: os.path.join(tmp, f"reports-{k}") for k in ("healthy", "durability", "mesh")}
+        rep_dir = {"mesh": os.path.join(tmp, "reports-mesh")}
 
         # 21b: phase B at MULTICHIP_SHAPE (each worker's first calls held)
         # in a thread, phase A at MULTICHIP_SHAPE in this one, at once.
@@ -5569,22 +5697,13 @@ def phase_certified(torch, card: str, dev: str = "cuda") -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
         mesh_reports = read_reports(rep_dir["mesh"])
 
-        # 21a's healthy and durability fleets at once, the law checker
-        # beside them.
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-        t_fleets = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:
-            f_healthy = pool.submit(timed, audit_demo.run_healthy, device=dev, report_dir=rep_dir["healthy"],
-                                    hold=True)
-            f_durability = pool.submit(timed, audit_demo.run_durability, CERT_TIMEOUT_S, dev, rep_dir["durability"])
-            t0 = time.perf_counter()
-            laws = audit_demo.run_laws(CERT_PAIRS, device=dev)
-            laws_s = time.perf_counter() - t0
-            (healthy, healthy_s), (durability, durability_s) = (f.result() for f in (f_healthy, f_durability))
-        fleets_s = time.perf_counter() - t_fleets
-        reports = {k: read_reports(rep_dir[k]) for k in ("healthy", "durability")}
+        # 21a's law checker (its fleets are `fleets`).
+        t0 = time.perf_counter()
+        laws = audit_demo.run_laws(CERT_PAIRS, device=dev)
+        laws_s = time.perf_counter() - t0
+    healthy, healthy_s, durability, durability_s = (fleets[k] for k in ("healthy", "healthy_s", "durability",
+                                                                       "durability_s"))
+    fleets_s, reports = fleets["fleets_s"], fleets["reports"]
 
     if not (laws["ok"] and laws["selftest_caught"] and laws["registry_ok"]):
         raise AssertionError(f"21a: the laws {laws}")
@@ -5655,9 +5774,132 @@ def phase_certified(torch, card: str, dev: str = "cuda") -> dict:
         whole_resync_bytes=small[dev]["whole_resync_bytes"], phase_s=time.perf_counter() - t_phase)
     return launches
 
-def main() -> int:
+def phase_write_tier(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 22: the fleet write tier. write_tier_demo whole as a
+    subprocess on `dev` at WRITE_SHAPE, WRITE_STEPS steps, the hot key's
+    owner SIGKILLed at WRITE_KILL_AT, each worker's first kernel calls
+    held: all 17 of the demo's checks, the SIGKILL of k0's owner mid-load
+    after hard acks from it, each survivor's launches of K1c, K2 and K3 and
+    its held calls equal to the plain versions, both certificates verified
+    and the violating arm's counterexample naming [8, 20]. Returns the
+    survivors' launches (a killed worker writes no report)."""
     import tempfile
 
+    from antidote_ccrdt_tpu_torch.scripts import write_tier_demo
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()  # the workers share the card
+    launches = {n: 0 for n in SOURCES}
+    kernels3 = ("scatter_max_rows_copy", "delta_place", "sort_slots")
+    with tempfile.TemporaryDirectory() as tmp:
+        rep_dir, out_path = os.path.join(tmp, "reports"), os.path.join(tmp, "writetier.json")
+        run = run_procs({"write_tier_demo": [
+            "-m", TOOLS + "write_tier_demo", "--device", dev, "--shape", WRITE_SHAPE, "--hold", "--report-dir", rep_dir,
+            "--out", out_path, "--steps", str(WRITE_STEPS), "--kill-at-step", str(WRITE_KILL_AT),
+            "--step-sleep", str(WRITE_STEP_SLEEP)]}, tmp, WRITE_TIMEOUT_S, env={"TMPDIR": tmp})["write_tier_demo"]
+        demo_s = run["exit_t"] - run["spawn_t"]
+        if run["rc"] != 0:
+            raise AssertionError(f"22: write_tier_demo exited {run['rc']}:\n{run['out'][-8000:]}")
+        with open(out_path) as f:
+            rep = json.load(f)
+        with open(os.path.join(rep_dir, "supervisor.json")) as f:
+            sup = json.load(f)
+        workers = {name[len("report-"):]: r for name, r in read_reports(rep_dir).items()
+                   if name.startswith("report-")}
+    checks, victim = rep["checks"], rep["killed"]
+    if not (rep["pass"] and len(checks) == 17 and all(checks.values())):
+        raise AssertionError(f"22: the write tier failed {[k for k, ok in checks.items() if not ok]}: "
+                             f"{json.dumps(rep)[:4000]}")
+    survivors = [m for m in write_tier_demo.MEMBERS if m != victim]
+    if not (victim == sup["victim"] and f"SIGKILL -> {victim} (mid-load)" in run["out"]
+            and sup["kill_step"] >= WRITE_KILL_AT and rep["outcomes"]["victim_hard"] > 0):
+        raise AssertionError(f"22: no mid-load SIGKILL of {victim} after hard acks from it: {sup}, "
+                             f"{rep['outcomes']}")
+    if sorted(workers) != survivors:
+        raise AssertionError(f"22: reports from {sorted(workers)}, survivors {survivors}")
+    cx = rep["violating_arm"]["counterexample"]
+    if not (rep["write_certificate"]["ok"] and rep["session_certificate"]["ok"] and rep["violating_arm"]["ok"] is False
+            and any(e["origin"] == "v0" and e["uncovered"] == [8, 20] for e in cx)):
+        raise AssertionError(f"22: the certificates {rep['write_certificate']}, {rep['session_certificate']}, "
+                             f"{rep['violating_arm']}")
+    got = {n: 0 for n in kernels3}
+    for name, r in workers.items():
+        if set(r["held"]) != {"K1c", "K2", "K3"} or any(v["max_abs_err"] or not v["equal"]
+                                                        for v in r["held"].values()):
+            raise AssertionError(f"22: worker {name}'s held calls {r['held']}")
+        if on_card:
+            require_launches(r["launches"], kernels3, f"22's worker {name}")
+        for n, v in r["launches"].items():
+            got[n] += v
+            launches[n] += v
+    # When each survivor adopted the victim's replicas, after the kill: its
+    # detector is the slowed one, while the writers' routers read the
+    # supervisor's dead set at once (the blip is failover, not detection).
+    adoption_s = {m: min((a["t"] - sup["kill_t"] for a in r["adoptions"] if a["t"] >= sup["kill_t"] and a["step"] > 0),
+                         default=None) for m, r in workers.items()}
+    log("22 write tier", card=card, shape=WRITE_SHAPE, members=write_tier_demo.MEMBERS, steps=WRITE_STEPS,
+        kill_at_step=WRITE_KILL_AT, step_sleep_s=WRITE_STEP_SLEEP, killed=victim, kill_step=sup["kill_step"],
+        checks=checks, writes_per_s=rep["fleet_writes_per_sec"], ops_per_s=rep["fleet_ops_per_sec"],
+        write_p99_ms=rep["write_p99_ms"], write_max_ms=rep["write_max_ms"], failover_blip_ms=rep["failover_blip_ms"],
+        writes_acked=rep["writes_acked"], acks_by_level=rep["acks_by_level"], coalesce_ratio=rep["coalesce_ratio"],
+        outcomes=rep["outcomes"], load_s=rep["load_s"], write_faults_fired=rep["write_faults_fired"],
+        write_certificate=rep["write_certificate"], session_certificate=rep["session_certificate"],
+        violating_arm=rep["violating_arm"], shed_arm=rep["shed_arm"],
+        per_worker={m: dict(first_apply_ms=r["first_apply_ms"], step_p50_ms=pct(r["step_ms"], 0.5),
+                            peak_gb=r["peak_gb"], launches=r["launches"]) for m, r in workers.items()},
+        held={m: r["held"] for m, r in workers.items()}, kill_to_adoption_s=adoption_s,
+        failover="routers read the supervisor's dead set at once", demo_s=demo_s, launches=got,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def middle_phases(torch, card: str) -> tuple:
+    """Phases 11-20 as main() runs them: ({path name: its launches}, 21a's
+    fleets). Worker processes run beside in-process drills that no wall
+    clock gates: 20b's topo_demo beside phase 12 and phase 19's fleets
+    and law checks beside 14a (both drills on a simulated network that
+    keeps virtual time), 17a's and 17b's worlds and then 21a's healthy and
+    durability fleets beside 14c (the working set's ownership is fixed);
+    phases 17, 19, 20 and 21 read them. The fleets' sequential references
+    are made on the CPU beforehand: no kernel runs beside a phase's
+    counts."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from antidote_ccrdt_tpu_torch.scripts.elastic_demo import reference_digest
+
+    out = {"durable host (phase 11)": phase_durable_host(torch, card)}
+    with tempfile.TemporaryDirectory() as root, ThreadPoolExecutor(3) as beside:
+        worlds_root, fleets_root = os.path.join(root, "worlds"), os.path.join(root, "fleets")
+        os.makedirs(worlds_root)
+        f_topo = beside.submit(run_topo, "cuda")
+        out["gossip (phase 12)"] = phase_gossip(torch, card)
+        out["served fleet (phase 13)"] = phase_fleet(torch, card)
+        f_fleets = beside.submit(run_obs_fleets, "cuda", fleets_root, demo_reference_crc(torch))
+        cert_reference = reference_digest("topk_rmv", device="cpu")
+
+        def worlds_then_cert_fleets():
+            return run_worlds("cuda", worlds_root), run_cert_fleets("cuda", cert_reference)
+
+        f_14c = []
+        out["overlap and pager (phase 14)"] = phase_overlap_pager(
+            torch, card, before_14c=lambda: f_14c.append(beside.submit(worlds_then_cert_fleets)))
+        out["bridge (phase 15)"] = phase_bridge(torch, card)
+        out["mesh (phase 16)"] = phase_mesh(torch, card)
+        worlds, cert_fleets = f_14c[0].result()
+        out["multihost (phase 17)"] = phase_multihost(torch, card, worlds)
+        with tempfile.TemporaryDirectory() as spill:  # 18a's drill, read again in 19d
+            out["elastic workers (phase 18)"], drill = phase_elastic(torch, card, spill)
+            out["observability fleets (phase 19)"] = phase_observability(torch, card, drill, f_fleets.result())
+            del drill
+        out["anti-entropy gates (phase 20)"] = phase_antientropy(torch, card, f_topo.result())
+    return out, cert_fleets
+
+
+def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
 
@@ -5686,19 +5928,9 @@ def main() -> int:
     topk_rmv, coalesced = phase_coalesced(torch, card)
     laws = phase_monoid(torch, card, topk_rmv)
     del topk_rmv
-    durable = phase_durable_host(torch, card)
-    gossip = phase_gossip(torch, card)
-    fleet = phase_fleet(torch, card)
-    paged = phase_overlap_pager(torch, card)
-    bridge = phase_bridge(torch, card)
-    mesh = phase_mesh(torch, card)
-    multihost = phase_multihost(torch, card)
-    with tempfile.TemporaryDirectory() as spill:  # 18a's drill, read again in 19d
-        elastic, drill = phase_elastic(torch, card, spill)
-        observability = phase_observability(torch, card, drill)
-        del drill
-    antientropy = phase_antientropy(torch, card)
-    certified = phase_certified(torch, card)
+    mid, cert_fleets = middle_phases(torch, card)
+    certified = phase_certified(torch, card, cert_fleets)
+    write_tier = phase_write_tier(torch, card)
     # `launches` is the count of the path that drives the kernel first
     # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
     # path's own count, each read from 0, is in `launches_by_path`.
@@ -5706,13 +5938,8 @@ def main() -> int:
                   "sort_slots_block": "wide rows (phase 8)", "sort_slots_global": "wide rows (phase 8)"}
     by_path = {name: {first_path.get(name, "replay (phase 4)"): launches[name]} for name in SOURCES}
     for path, got in (("coalesced replay (phase 9)", coalesced), ("merge laws (phase 10)", laws),
-                      ("durable host (phase 11)", durable), ("gossip (phase 12)", gossip),
-                      ("served fleet (phase 13)", fleet), ("overlap and pager (phase 14)", paged),
-                      ("bridge (phase 15)", bridge), ("mesh (phase 16)", mesh),
-                      ("multihost (phase 17)", multihost), ("elastic workers (phase 18)", elastic),
-                      ("observability fleets (phase 19)", observability),
-                      ("anti-entropy gates (phase 20)", antientropy),
-                      ("certified convergence (phase 21)", certified)):
+                      *mid.items(), ("certified convergence (phase 21)", certified),
+                      ("write tier (phase 22)", write_tier)):
         for name, n in got.items():
             by_path[name][path] = n
     print(json.dumps({"kernels": [

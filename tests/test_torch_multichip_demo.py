@@ -180,7 +180,16 @@ def test_chip_smoke_certified_convergence_phase_holds_on_the_cpu(monkeypatch, tm
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     ns = runpy.run_path(os.path.join(REPO, "chip_smoke.py"))
     ns["phase_certified"].__globals__.update(CERT_SHAPE="demo", MULTICHIP_SHAPE="demo", CERT_TIMEOUT_S=240.0)
-    launches = ns["phase_certified"](torch, "cpu", dev="cpu")
+    reference = elastic_demo.reference_digest("topk_rmv", device="cpu")
+    def no_reference(*args, **kw):
+        raise AssertionError("a sequential reference ran in the fleets' process")
+
+    with monkeypatch.context() as m:
+        # The fleets run beside other phases' counts: their references are
+        # `reference`, made beforehand, and none runs in this process.
+        m.setattr(elastic_demo, "reference_digest", no_reference)
+        fleets = ns["run_cert_fleets"]("cpu", reference)
+    launches = ns["phase_certified"](torch, "cpu", fleets, dev="cpu")
     assert launches == {n: 0 for n in ns["SOURCES"]}  # the CPU's plain versions count nothing
     lines = {ln.split("] ", 1)[0][1:]: json.loads(ln.split("] ", 1)[1])
              for ln in capsys.readouterr().out.splitlines() if ln.startswith("[21")}

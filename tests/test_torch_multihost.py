@@ -194,7 +194,7 @@ def test_one_process_mesh_and_tags():
     assert all(np.array_equal(x, y.numpy()) for x, y in zip(leaves(pmh.process_local_shards(got)), leaves(got)))
 
 
-def test_chip_smoke_multihost_phase_holds_on_the_cpu(monkeypatch):
+def test_chip_smoke_multihost_phase_holds_on_the_cpu(monkeypatch, tmp_path):
     """chip_smoke.py's phase 17 at small shapes on the CPU: 17a's world
     restored from DCP equals the single-process hierarchical reduce, 17b's
     worlds agree, 17c's sites converge, skip via the cursor and keep
@@ -211,5 +211,5 @@ def test_chip_smoke_multihost_phase_holds_on_the_cpu(monkeypatch):
     monkeypatch.setitem(ns, "WORKER_ENV", WORKER_ENV)
     monkeypatch.setattr(benchtime, "sync", lambda: None)
 
-    got = ns["phase_multihost"](torch, "cpu", dev="cpu")
+    got = ns["phase_multihost"](torch, "cpu", ns["run_worlds"]("cpu", str(tmp_path)), dev="cpu")
     assert set(got) >= {"scatter_max_rows_copy", "delta_place", "sort_slots"}

@@ -316,5 +316,7 @@ def test_chip_smoke_observability_phase_holds_on_the_cpu(monkeypatch, tmp_path):
         ELASTIC_SHAPE="4,256,32,8,4,8", WORKER_ENV=dict(os.environ, OMP_NUM_THREADS="1"),
         OBS_TIMEOUT_S=240.0, ELASTIC_FLEET_TIMEOUT_S=240.0)
     drill = ns["run_spanned_drill"](torch, "cpu", str(tmp_path / "a"))
-    launches = ns["phase_observability"](torch, "cpu", drill, dev="cpu")
+    fleets_root = str(tmp_path / "fleets")
+    fleets = ns["run_obs_fleets"]("cpu", fleets_root, ns["demo_reference_crc"](torch))
+    launches = ns["phase_observability"](torch, "cpu", drill, fleets, dev="cpu")
     assert launches == {n: 0 for n in ns["SOURCES"]}  # the CPU's plain versions count nothing

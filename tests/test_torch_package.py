@@ -20,8 +20,8 @@ REPO = Path(__file__).resolve().parent.parent
 # plane with the audit certifiers, and the overlapped round pipeline
 # with the partition pager, the bridge server and client, the mesh plane,
 # the multi-process plane, the elastic drill worker, the operator's
-# observability tools, the anti-entropy gates and the certified-convergence
-# gates; the walk must import each.
+# observability tools, the anti-entropy gates, the certified-convergence
+# gates and the fleet write tier; the walk must import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -52,11 +52,13 @@ NEW_MODULES = [
     "scripts.partition_demo", "scripts.topo_demo",
     # the certified-convergence gates
     "scripts.audit_demo", "scripts.multichip_demo",
+    # the fleet write tier
+    "scripts.write_tier_demo",
 ]
 WORKER_SCRIPTS = ["elastic_demo", "net_gossip_demo", "crash_recovery_demo",
                   "ccrdt_trace", "ccrdt_spans", "ccrdt_rtrace", "ccrdt_devprof", "ccrdt_audit",
                   "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo",
-                  "audit_demo", "multichip_demo"]
+                  "audit_demo", "multichip_demo", "write_tier_demo"]
 
 
 def test_import_pulls_in_no_jax():
@@ -150,6 +152,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         assert multihost.global_replica_mesh().shape == {"dcn": 1, "dc": 1, "key": 1}
     # An explicit CPU device is the one way to the plain path.
     assert registry.make_dense("topk_rmv", n_ids=8, n_dcs=2, device="cpu").device.type == "cpu"
+
+
+def test_write_tier_demo_raises_without_a_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """The drill and its CLI resolve the device before any worker starts:
+    without a card they raise; with ``--device cpu`` they get past it (to
+    the width, here a bad one)."""
+    from antidote_ccrdt_tpu_torch.scripts import write_tier_demo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(write_tier_demo, "_spawn_fleet", lambda *a, **kw: pytest.fail("a worker was started"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        write_tier_demo.run_fleet()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        write_tier_demo.main(["--out", "unused.json"])
+    with pytest.raises(ValueError):
+        write_tier_demo.run_fleet(device="cpu", shape="not,a,width")
 
 
 def test_registry_knows_topk_rmv():

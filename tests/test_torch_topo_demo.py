@@ -46,7 +46,7 @@ def test_chip_smoke_antientropy_phase_holds_on_the_cpu(monkeypatch, tmp_path, ca
     ns = runpy.run_path(os.path.join(REPO, "chip_smoke.py"))
     ns["phase_antientropy"].__globals__.update(AE_SHAPE="demo", AE_TIMEOUT_S=240.0, AE_PROBE_MB=(1, 4),
                                                WORKER_ENV=dict(os.environ, OMP_NUM_THREADS="1"))
-    launches = ns["phase_antientropy"](torch, "cpu", dev="cpu")
+    launches = ns["phase_antientropy"](torch, "cpu", ns["run_topo"]("cpu"), dev="cpu")
     assert launches == {n: 0 for n in ns["SOURCES"]}  # the CPU's plain versions count nothing
     lines = {ln.split("] ", 1)[0][1:]: json.loads(ln.split("] ", 1)[1])
              for ln in capsys.readouterr().out.splitlines() if ln.startswith("[20a ")}
