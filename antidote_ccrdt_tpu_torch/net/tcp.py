@@ -58,8 +58,10 @@ Failure behavior (the design goal: DEGRADE, never hang):
   breaks the receiver's chain, and the periodically-published full
   anchor resyncs the gap (`sweep_deltas`'s fallback). Snapshots are
   latest-wins — a newly queued anchor replaces any queued older one;
-* liveness comes from `net.membership` fed by every received frame, so
-  a stalled peer decays ALIVE -> SUSPECT -> DEAD instead of blocking.
+* liveness comes from `net.membership`: every received frame is direct
+  evidence of its sender, and a ping's piggybacked ages, aged by the
+  ping's wait in the receiver, evidence of the others, so a stalled peer
+  decays ALIVE -> SUSPECT -> DEAD instead of blocking.
 
 Frames are ENCODED AT SEND TIME (the queue holds builders, not bytes) so
 piggybacked ages are measured when the frame actually leaves — a frame
@@ -67,7 +69,10 @@ that sat queued behind a dead link must not deliver stale "I heard X
 recently" claims.
 
 Port of ``antidote_ccrdt_tpu/net/tcp.py``: the same frames, caches,
-counters and events. One difference: a psnap asked for with
+counters and events. Two differences. JAX's transport takes the ages of
+every frame as they stand; a large frame lands seconds after they were
+taken, so passed from peer to peer they kept a dead member alive while
+large frames flowed (``_handle``). And a psnap asked for with
 `request_psnaps` and not yet answered is waited for by `fetch_psnap`, at
 most PSNAP_WAIT_S, instead of reading whatever older psnap the cache
 holds. The JAX transport leaves this to thread timing, and its slower
@@ -87,6 +92,7 @@ bytes on the wire are the same).
 from __future__ import annotations
 
 import random
+import select
 import socket
 import struct
 import threading
@@ -887,9 +893,16 @@ class TcpTransport:
     def _read_conn(self, conn: socket.socket) -> None:
         buf = bytearray()
         conn.settimeout(None)
+        # When the bytes read since then began to arrive: the last read
+        # that found nothing waiting. A frame handled at `now` has waited
+        # at most `now - arrived` (the `waited_s` of `_handle`).
+        arrived = time.monotonic()
         try:
             while True:
+                idle = not select.select([conn], [], [], 0)[0]
                 data = conn.recv(1 << 16)
+                if idle:
+                    arrived = time.monotonic()
                 if not data:
                     return
                 buf.extend(data)
@@ -898,6 +911,7 @@ class TcpTransport:
                 if buf is None:
                     return
                 for term in unpack_coded_frames(buf):
+                    waited = time.monotonic() - arrived
                     if obs_spans.ACTIVE:
                         # Reader-thread span: frame decode + cache write
                         # (overlappable — the round never blocks on it).
@@ -905,9 +919,9 @@ class TcpTransport:
                             "round.gossip_recv", wire=True,
                             fkind=str(term[0]) if term else "?",
                         ):
-                            self._handle(term, conn)
+                            self._handle(term, conn, waited)
                     else:
-                        self._handle(term, conn)
+                        self._handle(term, conn, waited)
         except (OSError, ValueError):
             return
         finally:
@@ -1035,7 +1049,13 @@ class TcpTransport:
                 meta={"origin": self.member, "part": int(part)},
             )
 
-    def _handle(self, term, conn: Optional[socket.socket] = None) -> None:
+    def _handle(
+        self, term, conn: Optional[socket.socket] = None,
+        waited_s: float = 0.0,
+    ) -> None:
+        """Act on one decoded frame. `waited_s` bounds how long the frame
+        sat in this member's socket and reader before it got here; the
+        ages a ping relays are aged by it."""
         self.metrics.count("net.frames_recv")
         tag = term[0]
         if tag == A_METRICS_REQ:
@@ -1211,9 +1231,18 @@ class TcpTransport:
             return  # unknown frame: ignore (forward compatibility)
         if m != self.member:
             self.membership.observe(m)
-        self.membership.absorb(
-            {k.decode("utf-8"): v for k, v in heard.items()}
-        )
+        if tag == A_PING:
+            # Relayed ages count only from pings, each aged by its wait
+            # here. An age is taken when its frame is encoded: a large
+            # frame lands seconds later (its encoding, the wire, and the
+            # frames read before it), and so does a ping read behind one.
+            # Taken as they stand, such ages make the members they name
+            # that much fresher, and passed on from peer to peer they keep
+            # a dead member alive for as long as large frames flow.
+            self.membership.absorb(
+                {k.decode("utf-8"): float(v) + waited_s
+                 for k, v in heard.items()}
+            )
 
     # -- relay (anchors only; plan_relay returns [] for leaves) ------------
 

@@ -61,7 +61,8 @@ group of the fleet is killed. Options of the port only:
   R = 32 (225 MB) is the widest, ``main`` (563 MB) is past it.
 * ``--report-dir DIR``: each worker writes its ``--report`` there as
   ``report-<member>.json``, and the supervisor writes ``supervisor.json``
-  (the victim, the wall time and step of its SIGKILL, the storm's span).
+  (the victim, the wall time and step of its SIGKILL, the storm's span),
+  once when the storm stops and again at the end.
 * ``--hold``: each worker's first K1c, K2 and K3 call is held against its
   plain version.
 
@@ -594,6 +595,8 @@ def run_fleet(  # noqa: PLR0915 — one linear acceptance drill
                 t.join(HARD_LATENCY_CEILING_S + 10.0)
             t_load = time.monotonic() - t_load0
             supervisor["storm_t1"] = time.time()
+            if report_dir:  # the storm is over: what runs now reads no clock of the gates
+                _write_json(os.path.join(report_dir, "supervisor.json"), supervisor)
             hung_threads = [t for t in threads if t.is_alive()]
             n_load1 = len(obs_events.events())
             write_faults = [
@@ -790,7 +793,7 @@ def run_fleet(  # noqa: PLR0915 — one linear acceptance drill
                 "pass": all(checks.values()) and len(failures) == n_failures0,
             }
             if report_dir:
-                _write_json(os.path.join(report_dir, "supervisor.json"), supervisor)
+                _write_json(os.path.join(report_dir, "supervisor.json"), dict(supervisor, done=True))
             return report
         finally:
             faults.uninstall()

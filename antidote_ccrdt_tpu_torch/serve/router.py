@@ -41,7 +41,12 @@ in benches) and the router owns only the *policy*:
   If no live peer can cover the token the router waits up to
   ``session_wait_s`` (`router.session_waits`) and then fails honestly
   with ``session_unsatisfiable`` + the exact per-origin gaps, never
-  silently serving a token-violating answer. ``session_mode="ignore"``
+  silently serving a token-violating answer. A pass that failed on
+  every covering peer, while the others were left out on coverage
+  alone, waits the same way before it spends a retry round: the
+  next round would only ask the same peers again. (JAX's router spends
+  the round, so a floor that one peer covers ends ``unavailable`` after
+  three transient faults of that peer in a row.) ``session_mode="ignore"``
   strips the token from the wire (while still flight-recording what the
   session *required*) — the deliberately-violating arm the audit layer
   (`obs.audit.certify_sessions`) must catch.
@@ -243,6 +248,14 @@ class FleetRouter:
         bucket first, dead peers and open breakers dropped — the shared
         walk (`routing_common.candidate_order`), then the read tier's
         session-coverage filter on top."""
+        out, excluded = self._candidates(key, token)
+        return out, excluded and not out
+
+    def _candidates(
+        self, key: str, token: Optional[Dict[str, int]] = None
+    ) -> Tuple[List[str], bool]:
+        """`route`'s walk: the candidates, plus a flag: True iff some live
+        peer was left out on session coverage alone."""
         ordered = candidate_order(
             key,
             self._peers(),
@@ -263,7 +276,7 @@ class FleetRouter:
                     session_starved = True
                     continue
             out.append(p)
-        return out, session_starved and not out
+        return out, session_starved
 
     # -- the query path ------------------------------------------------------
 
@@ -319,7 +332,8 @@ class FleetRouter:
             # leaking out of attribution coverage.
             t_route = t0 if first_route else self.mono()
             first_route = False
-            order, starved = self.route(key, token)
+            order, excluded = self._candidates(key, token)
+            starved = excluded and not order
             if tr is not None:
                 # The route decision IS evidence: candidate order plus
                 # the breaker verdicts that shaped it (closed breakers
@@ -378,6 +392,21 @@ class FleetRouter:
                     tr.hop("backoff", now, self.mono(),
                            reason="session_wait")
                 continue
+            if kind == "err" and excluded:
+                # Every peer that covers the token failed and the rest
+                # lag it: another round would ask the same peers again.
+                # Wait for them (or for replication) first.
+                last_err, all_sheds = str(detail), False
+                now = self.mono()
+                if session_wait_deadline is None:
+                    session_wait_deadline = now + self.session_wait_s
+                    self.metrics.count("router.session_waits")
+                if now < session_wait_deadline:
+                    self.sleep(self.session_poll_s)
+                    if tr is not None:
+                        tr.hop("backoff", now, self.mono(),
+                               reason="session_wait")
+                    continue
             if kind == "shed":
                 shed_hint = max(shed_hint or 0, int(detail or 0))
                 last_err = "overloaded"

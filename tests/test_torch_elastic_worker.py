@@ -170,7 +170,8 @@ def test_chip_smoke_elastic_phase_holds_on_the_cpu(tmp_path):
     ns = runpy.run_path(os.path.join(REPO, "chip_smoke.py"))
     ns["phase_elastic"].__globals__.update(ELASTIC_SHAPE="4,256,32,8,4,8",
                                            WORKER_ENV=dict(os.environ, OMP_NUM_THREADS="1"))
-    launches, drill = ns["phase_elastic"](torch, "cpu", str(tmp_path / "a"), dev="cpu")
+    launches, drill = ns["phase_elastic"](torch, "cpu", str(tmp_path / "a"), ns["elastic_references"](torch, "cpu"),
+                                          dev="cpu")
     assert set(launches) == set(ns["SOURCES"])  # the CPU's plain versions count nothing
     assert drill["root"] == str(tmp_path / "a") and sorted(drill["reports"]) == ["w0", "w2"]
     spills = os.listdir(drill["obs"])

@@ -315,7 +315,8 @@ def test_chip_smoke_observability_phase_holds_on_the_cpu(monkeypatch, tmp_path):
     ns["phase_observability"].__globals__.update(
         ELASTIC_SHAPE="4,256,32,8,4,8", WORKER_ENV=dict(os.environ, OMP_NUM_THREADS="1"),
         OBS_TIMEOUT_S=240.0, ELASTIC_FLEET_TIMEOUT_S=240.0)
-    drill = ns["run_spanned_drill"](torch, "cpu", str(tmp_path / "a"))
+    drill = ns["run_spanned_drill"](ns["elastic_references"](torch, "cpu")["4,256,32,8,4,8"], "cpu",
+                                    str(tmp_path / "a"))
     fleets_root = str(tmp_path / "fleets")
     fleets = ns["run_obs_fleets"]("cpu", fleets_root, ns["demo_reference_crc"](torch))
     launches = ns["phase_observability"](torch, "cpu", drill, fleets, dev="cpu")

@@ -21,7 +21,7 @@ REPO = Path(__file__).resolve().parent.parent
 # with the partition pager, the bridge server and client, the mesh plane,
 # the multi-process plane, the elastic drill worker, the operator's
 # observability tools, the anti-entropy gates, the certified-convergence
-# gates and the fleet write tier; the walk must import each.
+# gates and the fleet write and read tiers; the walk must import each.
 NEW_MODULES = [
     "ops.segment", "ops.compaction", "ops.laws", "harness.pipeline", "parallel.delta",
     "parallel.monoid", "utils.tree", "models.average", "models.wordcount", "harness.dense_replay",
@@ -54,11 +54,13 @@ NEW_MODULES = [
     "scripts.audit_demo", "scripts.multichip_demo",
     # the fleet write tier
     "scripts.write_tier_demo",
+    # the fleet read tier
+    "scripts.read_tier_demo",
 ]
 WORKER_SCRIPTS = ["elastic_demo", "net_gossip_demo", "crash_recovery_demo",
                   "ccrdt_trace", "ccrdt_spans", "ccrdt_rtrace", "ccrdt_devprof", "ccrdt_audit",
                   "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo",
-                  "audit_demo", "multichip_demo", "write_tier_demo"]
+                  "audit_demo", "multichip_demo", "write_tier_demo", "read_tier_demo"]
 
 
 def test_import_pulls_in_no_jax():
@@ -168,6 +170,22 @@ def test_write_tier_demo_raises_without_a_card_unless_the_cpu_is_asked_for(monke
         write_tier_demo.main(["--out", "unused.json"])
     with pytest.raises(ValueError):
         write_tier_demo.run_fleet(device="cpu", shape="not,a,width")
+
+
+def test_read_tier_demo_raises_without_a_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """The read-tier drill and its CLI resolve the device before any worker
+    starts: without a card they raise; with ``--device cpu`` they get past
+    it (to the width, here a bad one)."""
+    from antidote_ccrdt_tpu_torch.scripts import read_tier_demo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(read_tier_demo, "_spawn_fleet", lambda *a, **kw: pytest.fail("a worker was started"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        read_tier_demo.run_fleet()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        read_tier_demo.main(["--out", "unused.json"])
+    with pytest.raises(ValueError):
+        read_tier_demo.run_fleet(device="cpu", shape="not,a,width")
 
 
 def test_registry_knows_topk_rmv():

@@ -27,6 +27,7 @@ import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -178,7 +179,8 @@ def test_chip_smoke_write_tier_phase_holds_on_the_cpu(monkeypatch, tmp_path, cap
     ns["phase_write_tier"].__globals__.update(WRITE_SHAPE="demo", WRITE_STEPS=SHORT["steps"],
                                               WRITE_KILL_AT=SHORT["kill_at_step"],
                                               WRITE_STEP_SLEEP=SHORT["step_sleep"])
-    launches = ns["phase_write_tier"](torch, "cpu", dev="cpu")
+    with ThreadPoolExecutor(1) as pool:
+        launches = ns["phase_write_tier"](torch, "cpu", ns["start_write_tier"](torch, pool, "cpu"))
     assert launches == {n: 0 for n in ns["SOURCES"]}  # the CPU's plain versions count nothing
     (line,) = [json.loads(ln.split("] ", 1)[1]) for ln in capsys.readouterr().out.splitlines()
                if ln.startswith("[22 write tier]")]
