@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -209,7 +210,29 @@ def main(argv: Sequence[str] = None) -> None:
 # --- starting a world ----------------------------------------------------------
 
 
+EPHEMERAL_RANGE = "/proc/sys/net/ipv4/ip_local_port_range"
+
+
 def free_port() -> int:
+    """A port nothing on this host holds. Where the kernel names its range
+    of ephemeral ports (Linux), one below it: an outgoing connection of
+    another process takes its local port from that range, and could take
+    one picked inside it in the seconds before rank 0 binds it. Elsewhere,
+    one the system picks."""
+    try:
+        with open(EPHEMERAL_RANGE) as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 0
+    pick = random.SystemRandom()  # independent of any seeded `random`
+    for _ in range(64 if low > 10_000 else 0):
+        port = pick.randrange(10_000, low)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+            return port
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]

@@ -121,7 +121,7 @@ Phases, each printing one line (any failure exits non-zero):
    the write tier's counters lit, worker w0's K1c, K2 and K3 calls held
    against their plain versions; the same flow at R = 4, 1 024 ids with
    no threads or faults gives equal answer bytes, certificates and
-   digests on the CPU and the card;
+   digests on the CPU and the card (run beside phase 24's start-up);
 14. overlap and pager: (a) ``tests/test_overlap.py``'s overlapped chaos
    drill at the main path's width: phase 12's members, faults, ops and
    adoption, the inbound half of every member through an
@@ -143,7 +143,8 @@ Phases, each printing one line (any failure exits non-zero):
    reference, state >= 10x the budget, evictions, hydrations and cold
    folds, hit rates >= 0.9, no wasted psnap, the hydrate span lit) and an
    all-resident arm with equal digests; then (a) and (c) at R = 4,
-   I = 4 096 on the CPU and the card, equal states, digests and counters;
+   I = 4 096 on the CPU and the card, equal states, digests and counters
+   (run after phase 17, beside phase 22's reap);
 15. bridge: (a) ``bridge/server.py`` and ``bridge/client.py`` over TCP on
    127.0.0.1, both in this process: a topk_rmv grid of the main path's
    geometry (563 MB on the card) fed phase 4's op stream (seed 7, 32 768
@@ -246,9 +247,9 @@ Phases, each printing one line (any failure exits non-zero):
    equal byte for byte to the CPU's, ``laws --selftest``, and ``certify
    --final-dir`` and ``verify`` over (b)'s fleet against this process's
    reference; (a), (b) and (e)'s law checks at once beside phase 14a's
-   drill, (e)'s certify once (b) is done, (c) alone, then (d)'s reads at
-   once; the worker reports of (a)-(c) counted, each of them must launch
-   K1c, K2 and K3;
+   drill, (e)'s certify once (b) is done, (d)'s reads at once beside
+   phase 14c's drill (after 17's worlds), (c) alone; the worker reports
+   of (a)-(c) counted, each of them must launch K1c, K2 and K3;
 20. anti-entropy gates: (a) a TCP probe (1, 130 and 225 MB deltas between
    two ``TcpTransport``s, landed byte for byte), then
    ``partition_demo.run_drill`` in this process at R = D = 32, 40 000 ids (225 MB a member, the widest anchor under
@@ -279,8 +280,8 @@ Phases, each printing one line (any failure exits non-zero):
    divergent partitions, the watchdog's ok, diverged, wedged, ok, and a
    failed, verified certificate naming exactly the divergent partitions;
    the arm at the demo's width equal on the CPU and the card (a frozen
-   wall clock); two fleets at once on the card (beside phase 14c's
-   drill, after 17's worlds), then the law checker (every registered
+   wall clock); two fleets at once on the card (beside phase 12's
+   drill, after 20b's topo_demo), then the law checker (every registered
    type, 32 pairs, the broken merge caught): ``run_healthy`` (3 ``net_gossip_demo`` workers at
    elastic_demo's width, seeded ``tcp.send`` drops, 8 partitions, each's
    first kernel calls held: certificate OK and verified, no wedge alarm),
@@ -324,13 +325,37 @@ Phases, each printing one line (any failure exits non-zero):
    survivors, each's launches of K1c, K2 and K3 and its held calls equal
    to the plain versions, the clean session certificate with reads and
    writes, the violating arm's counterexample (session demo-violating,
-   origin w0, have < want). Phases 22 and 23 run last, one after the
-   other, each demo's storm with nothing beside it: phase 17 runs beside
-   22's reap (the survivors' detector, adoption and final barrier, which
-   no check of the demo times), phase 21 beside 23's;
-24. the kernels line (launches on each path that drives a kernel, phases
-   9-23 included; phase 17's are its workers' and its sites', not the
-   reference's; phases 18-23 their card workers', 20a's drill, 21a's
+   origin w0, have < want);
+24. request tracing: ``rtrace_demo`` whole as a subprocess on the card:
+   4 ``net_gossip_demo`` workers (the serve plane, the rtrace plane
+   armed, seeded ``tcp.send`` drops and ``serve.query`` stalls, a 60 s
+   serve linger after the final) at phase 23's width and stream with the
+   slowed detector of 18a, each worker's first K1c, K2 and K3 call held,
+   3 traced clients (sample 1.0) through two ``FleetRouter``s
+   (``router.route`` drops, one hedging), the rendezvous head of "k0"
+   SIGKILLed 2 s into the storm with a probe held in flight at it, then
+   the paired overhead window against ``CCRDT_RTRACE=0`` on the quiesced
+   survivors (the demo's 14 steps at 1.4 s and its windows); gates: all
+   14 of the demo's checks at its bounds (overhead at most 5 %,
+   attribution coverage at least 0.9 at p50 and p99, at least 99 % of
+   waterfalls complete, a blip of at most 5 000 ms, no read over 10 s,
+   no read ``unavailable``), the SIGKILL with the probe in flight,
+   reports from exactly the three survivors, each's launches of K1c, K2
+   and K3 and its held calls equal to the plain versions, and the port's
+   ``ccrdt_rtrace`` over the run's own spill: the report's dead_reroute
+   trace's waterfall shows the victim's ``dead_reroute`` row, a stored
+   trace that failed over shows that row and then a survivor's answer,
+   ``attribute`` names a p99 dominant bucket. Phases
+   22, 23 and 24 run last, one after the other, each demo's storm with
+   nothing beside it: phase 17 and then phase 14's reduced twin run
+   beside 22's reap (the survivors' detector, adoption and final barrier,
+   which no check of the demo times), phase 21 beside 23's, and phase
+   13's reduced twin beside 24's start-up (the script fails if it ran
+   into 24's storm); 24's wait for the finals and its overhead window run
+   alone;
+25. the kernels line (launches on each path that drives a kernel, phases
+   9-24 included; phase 17's are its workers' and its sites', not the
+   reference's; phases 18-24 their card workers', 20a's drill, 21a's
    divergent arm and 21b's phase A with phase B's reference), then the
    ok line.
 
@@ -456,11 +481,13 @@ PIPE_MEMBERS, PIPE_STEPS, PIPE_TAIL = ("p0", "p1", "p2"), 3, 20
 # replica and step, seeded per (seed, step, replica)), `ensure_resident`
 # before every apply, hit counters reset after step WS_WARM, a tail of at
 # most 80 rounds; the demo's gates. Replica rows split over the workers as
-# phase 12 splits them. Cut from the demo's 10 steps to 3 for time (each
-# step of each arm publishes and sweeps 563 MB anchors on the host), its
-# warm-up from 2 steps to 1, so that one step's accesses are counted, as
-# at 4 steps after a warm-up of 2.
-WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w2"), 3, 1, 80, 32, 2.2, 7
+# phase 12 splits them. Cut from the demo's 10 steps to 2 for time (each
+# step of each arm publishes and sweeps 563 MB anchors on the host; the
+# publisher's full_every=2 makes the first and third steps' publishes
+# anchors, so the third step was the dearest), the hit counters reset
+# after the first step's applies, so that the second step's accesses are
+# counted after a warm-up of one.
+WS_MEMBERS, WS_STEPS, WS_WARM, WS_TAIL, WS_P, WS_ZIPF, WS_SEED = ("w0", "w1", "w2"), 2, 0, 80, 32, 2.2, 7
 WS_B, WS_BR, WS_MIN_HIT, WS_MIN_RATIO = 96, 8, 0.9, 10.0
 # The reduced widths (R, I, B, Br) of the CPU == card runs of 14a and 14c.
 OVERLAP_SMALL, WS_SMALL = GOSSIP_SMALL, (4, 4_096, WS_B, WS_BR)
@@ -615,6 +642,24 @@ WRITE_SHAPE, WRITE_STEPS, WRITE_KILL_AT, WRITE_STEP_SLEEP, WRITE_TIMEOUT_S = "32
 # READ_TIMEOUT_S.
 READ_SHAPE, READ_KILL_AT, READ_STEP_SLEEP, READ_TIMEOUT_S = "32,10000,32768,2048,4,100", 5, 1.0, 420.0
 READ_BOUNDS = (300.0, 1500.0, 5000.0)
+# Phase 24, the request-tracing gate: rtrace_demo of antidote_ccrdt_tpu_torch/scripts/
+# whole as a subprocess: 4 net_gossip_demo workers (the serve plane, the
+# rtrace plane armed through CCRDT_RTRACE=1, the demo's seeded tcp.send
+# drops and serve.query stalls, a 60 s serve linger after the final) at
+# RTRACE_SHAPE (phase 23's width and stream) with multichip_demo's
+# WIDE_WORKER_ARGS, every worker's first K1c, K2 and K3 call held, 3 traced
+# clients through two FleetRouters (sample 1.0, router.route drops, one
+# hedging), the rendezvous head of "k0" SIGKILLed with a probe held in
+# flight at it, then the overhead window against the quiesced survivors.
+# The demo's own depth, pacing and windows: RTRACE_STEPS worker steps,
+# RTRACE_STEP_SLEEP s apart, RTRACE_WINDOWS (s: the storm before the kill,
+# after it, the overhead window), and RTRACE_BOUNDS, its bounds: overhead
+# % at most, attribution coverage at p50 and p99 and the share of complete
+# waterfalls at least, failover blip ms at most. The demo is stopped after
+# RTRACE_TIMEOUT_S.
+RTRACE_SHAPE, RTRACE_STEPS, RTRACE_STEP_SLEEP, RTRACE_TIMEOUT_S = READ_SHAPE, 14, 1.4, 420.0
+RTRACE_WINDOWS = (2.0, 4.0, 6.0)
+RTRACE_BOUNDS = (5.0, 0.9, 0.99, 5000.0)
 # 20a's TCP probe: a delta of each size (MB) sent between two TcpTransports
 # on 127.0.0.1 (1 MB opens the link; 130 MB is the drill's last
 # pre-outage delta, 225 MB its anchor).
@@ -3029,10 +3074,10 @@ def check_fleet(out: dict, what: str, storm: bool) -> dict:
 
 
 def phase_fleet(torch, card: str, dev: str = "cuda") -> dict:
-    """Phase 13: the read plane at the main path's width (13a), the served
-    fleet drill (13b), and the drill at FLEET_SMALL on the CPU and the
-    card with equal answer bytes, certificates and digests. Returns the
-    phase's K1c, K2 and K3 launches (13a and 13b)."""
+    """Phase 13: the read plane at the main path's width (13a) and the
+    served fleet drill (13b); its reduced twin is `fleet_reduced`, which
+    main() runs beside phase 24's start-up. Returns the phase's K1c, K2 and K3
+    launches (13a and 13b)."""
     from antidote_ccrdt_tpu_torch.ops import kernels
     from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
     from antidote_ccrdt_tpu_torch.utils.benchtime import sync
@@ -3085,13 +3130,18 @@ def phase_fleet(torch, card: str, dev: str = "cuda") -> dict:
         client_counters={k: v for k, v in out["counters"].items() if k.startswith(("router.", "write_session."))},
         serve_counters=out["serve_counters"], fault_hits=out["fault_hits"], launches={
             n: launches[n] - read_launches[n] for n in wrappers}, held_against_plain=held,
-        peak_mem_gb=peak_gb, fleet_s=fleet_s)
+        peak_mem_gb=peak_gb, fleet_s=fleet_s, phase_s=time.perf_counter() - t_phase)
     del out
     gc.collect()
 
-    # The same flow at the reduced width, plain versions on the CPU
-    # against the kernels on the card: equal answer bytes, certificates
-    # (one frozen wall clock) and digests.
+    return launches
+
+
+def fleet_reduced(torch, card: str, dev: str = "cuda") -> None:
+    """Phase 13's flow at FLEET_SMALL, plain versions on the CPU against the
+    kernels on the card: equal answer bytes, certificates (one frozen wall
+    clock) and digests. No wall clock gates it."""
+    t_phase = time.perf_counter()
     small = {}
     for d in ("cpu", dev):
         with frozen_wall_clock():
@@ -3111,7 +3161,6 @@ def phase_fleet(torch, card: str, dev: str = "cuda") -> dict:
         answer_frames=len(cpu["answers"]), ryw_reads=len(reads), writes_acked=sum(
             st["acked"] for st in cpu["stats"]), write_signature=cpu["wcert"]["signature"][:16],
         session_signature=cpu["scert"]["signature"][:16], phase_s=time.perf_counter() - t_phase)
-    return launches
 
 
 def pct(xs, p: float):
@@ -3469,11 +3518,11 @@ def check_working_set(out: dict, what: str) -> dict:
 
 def phase_overlap_pager(torch, card: str, dev: str = "cuda", before_14c=None) -> dict:
     """Phase 14: the overlapped drill (14a), serial against overlapped
-    rounds with live threads (14b), the overcommitted working set (14c),
-    and 14a and 14c at reduced widths on the CPU and the card with equal
-    states, digests and counters; `before_14c`, if given, is called as 14c
-    begins. Returns the phase's K1c, K2 and K3 launches (14a-c at the main
-    path's width)."""
+    rounds with live threads (14b), the overcommitted working set (14c);
+    its reduced twin is `overlap_pager_reduced`, which main() runs beside
+    phase 22's reap. `before_14c`, if given, is called as 14c begins.
+    Returns the phase's K1c, K2 and K3 launches (14a-c at the main path's
+    width)."""
     from antidote_ccrdt_tpu_torch.ops import kernels
     from antidote_ccrdt_tpu_torch.ops.delta_place import delta_place
     from antidote_ccrdt_tpu_torch.utils.benchtime import sync
@@ -3482,9 +3531,6 @@ def phase_overlap_pager(torch, card: str, dev: str = "cuda", before_14c=None) ->
     wrappers = {"scatter_max_rows_copy": kernels.scatter_max_rows_copy, "delta_place": delta_place,
                 "sort_slots": kernels.sort_slots}
     kernel_of = {"scatter_max_rows_copy": "K1c", "delta_place": "K2", "sort_slots": "K3"}
-
-    def same(a, b):
-        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(leaves(a), leaves(b)))
 
     def held_calls(held):
         return {n: sum(v["calls"] for k, v in held.items() if k.split()[0] == kernel_of[n]) for n in wrappers}
@@ -3596,17 +3642,23 @@ def phase_overlap_pager(torch, card: str, dev: str = "cuda", before_14c=None) ->
         cold_folds_timed=len(timing["cold_fold_ms"]), resident_bytes=ws["resident_bytes"],
         host_tier_bytes=ws["host_tier_bytes"], cold_tier_bytes=ws["cold_tier_bytes"], cold_tier_pinned=ws["cold_tier_pinned"],
         counters=wc, hydrate_span_lit=True, all_resident_equal=True, launches=c_launches,
-        w0_launches=ws["w0_launches"], held_against_plain=held, peak_mem_gb=peak_gb)
+        w0_launches=ws["w0_launches"], held_against_plain=held, peak_mem_gb=peak_gb,
+        phase_s=time.perf_counter() - t_phase)
     del ws, flat
     gc.collect()
 
-    # 14a and 14c at reduced widths: the CPU's plain versions against the
-    # card's kernels.
+    return launches
+
+
+def overlap_pager_reduced(torch, card: str, dev: str = "cuda") -> None:
+    """14a and 14c at reduced widths: the CPU's plain versions against the
+    card's kernels, equal states, digests and counters. No wall clock
+    gates it."""
     t_small = time.perf_counter()
     small = {d: run_gossip(torch, d, OVERLAP_SMALL, overlap=True) for d in ("cpu", dev)}
     cpu, on_card = small["cpu"], small[dev]
     if cpu["counters"] != on_card["counters"] or cpu["digests"] != on_card["digests"] or not all(
-            same(cpu["states"][m], on_card["states"][m]) for m in cpu["states"]):
+            _same(torch, cpu["states"][m], on_card["states"][m]) for m in cpu["states"]):
         raise AssertionError("the reduced overlapped drill differs between the CPU and the card")
     if not cpu["covered"] or any(d != cpu["ref"] for d in cpu["digests"].values()):
         raise AssertionError("the reduced overlapped drill missed the sequential reference")
@@ -3619,9 +3671,7 @@ def phase_overlap_pager(torch, card: str, dev: str = "cuda", before_14c=None) ->
     log("14 reduced", card=card, overlap_geometry=dict(zip(("R", "I", "B", "Br"), OVERLAP_SMALL)),
         working_set_geometry=dict(zip(("R", "I", "B", "Br"), WS_SMALL)), equal_cpu_card=True,
         overlap_counters={k: v for k, v in cpu["counters"].items() if k.startswith("overlap.")},
-        working_set_counters=wsmall["cpu"]["counters"], reduced_s=time.perf_counter() - t_small,
-        phase_s=time.perf_counter() - t_phase)
-    return launches
+        working_set_counters=wsmall["cpu"]["counters"], reduced_s=time.perf_counter() - t_small)
 
 
 @contextlib.contextmanager
@@ -4936,7 +4986,7 @@ def run_procs(cmds: dict, root: str, timeout_s: float, env=None) -> dict:
 def read_reports(rep_dir: str) -> dict:
     """{file stem: document} of the worker reports in `rep_dir`."""
     reports = {}
-    for fn in sorted(os.listdir(rep_dir)):
+    for fn in sorted(f for f in os.listdir(rep_dir) if f.endswith(".json")):
         with open(os.path.join(rep_dir, fn)) as f:
             reports[fn[:-len(".json")]] = json.load(f)
     return reports
@@ -5182,7 +5232,7 @@ def run_cli(name: str, *args):
 def cli_out(p, what: str, rc: int = 0) -> str:
     """The standard output of a finished CLI, which must have exited `rc`."""
     if p.returncode != rc:
-        raise AssertionError(f"19: {what} exited {p.returncode}, not {rc}:\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+        raise AssertionError(f"{what} exited {p.returncode}, not {rc}:\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
     return p.stdout
 
 
@@ -5291,7 +5341,29 @@ def run_obs_fleets(dev: str, root: str, crc: int) -> dict:
                 fleets_s=time.perf_counter() - t0)
 
 
-def phase_observability(torch, card: str, drill: dict, fleets: dict, dev: str = "cuda") -> dict:
+def spill_reads(drill: dict, out_dir: str) -> dict:
+    """19d's five reads of phase 18a's spill (`drill`), at once, as
+    subprocesses that touch no device: ccrdt_spans merge (its trace in
+    `out_dir`) and attribute, ccrdt_trace summary, ccrdt_devprof churn
+    (its finished process: on the CPU it exits 1) and watermarks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    obs, trace = drill["obs"], os.path.join(out_dir, "spans_trace.json")
+    t_d = time.perf_counter()
+    with ThreadPoolExecutor(5) as pool:
+        f_merge = pool.submit(run_cli, "ccrdt_spans", "merge", obs, "-o", trace)
+        f_att = pool.submit(run_cli, "ccrdt_spans", "attribute", obs, "--json")
+        f_summary = pool.submit(run_cli, "ccrdt_trace", "summary", obs, "--json")
+        f_churn = pool.submit(run_cli, "ccrdt_devprof", "churn", obs, "--json")
+        f_marks = pool.submit(run_cli, "ccrdt_devprof", "watermarks", drill["root"])
+        return dict(merge_out=cli_out(f_merge.result(), "19d ccrdt_spans merge"),
+                    att=json.loads(cli_out(f_att.result(), "19d ccrdt_spans attribute")),
+                    summary=json.loads(cli_out(f_summary.result(), "19d ccrdt_trace summary")),
+                    churn=f_churn.result(), marks=cli_out(f_marks.result(), "19d ccrdt_devprof watermarks"),
+                    trace=trace, reads_s=time.perf_counter() - t_d)
+
+
+def phase_observability(torch, card: str, drill: dict, fleets: dict, reads: dict, dev: str = "cuda") -> dict:
     """Phase 19: the operator's observability tools of
     antidote_ccrdt_tpu_torch/scripts as subprocesses. (a) obs_dashboard
     --demo and (b) spans_demo, beside (e)'s law checks; (c) overlap_demo
@@ -5303,10 +5375,10 @@ def phase_observability(torch, card: str, drill: dict, fleets: dict, dev: str = 
     (e) ccrdt_audit laws on `dev` equal byte for byte to the CPU's, the
     selftest, and certify and verify over 19b's fleet. (a), (b) and (e)
     are `fleets`, `run_obs_fleets`' (main() runs them beside an earlier
-    phase). Returns the workers' launches (19a-c's reports; 18a's
-    are phase 18's)."""
+    phase), and (d)'s reads `reads`, `spill_reads`' (main() makes them
+    beside 14c). Returns the workers' launches (19a-c's reports; 18a's are
+    phase 18's)."""
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     from antidote_ccrdt_tpu_torch.obs import spans as obs_spans
 
@@ -5375,21 +5447,9 @@ def phase_observability(torch, card: str, drill: dict, fleets: dict, dev: str = 
         # five reads at once.
         d, obs = drill, drill["obs"]
         survivors = sorted(d["reports"])
-        trace = os.path.join(tmp, "spans_trace.json")
-        t_d = time.perf_counter()
-        with ThreadPoolExecutor(5) as pool:
-            f_merge = pool.submit(run_cli, "ccrdt_spans", "merge", obs, "-o", trace)
-            f_att = pool.submit(run_cli, "ccrdt_spans", "attribute", obs, "--json")
-            f_summary = pool.submit(run_cli, "ccrdt_trace", "summary", obs, "--json")
-            f_churn = pool.submit(run_cli, "ccrdt_devprof", "churn", obs, "--json")
-            f_marks = pool.submit(run_cli, "ccrdt_devprof", "watermarks", drill["root"])
-            merge_out = cli_out(f_merge.result(), "19d ccrdt_spans merge")
-            d_att = json.loads(cli_out(f_att.result(), "19d ccrdt_spans attribute"))
-            summary = json.loads(cli_out(f_summary.result(), "19d ccrdt_trace summary"))
-            churn = f_churn.result()
-            marks = cli_out(f_marks.result(), "19d ccrdt_devprof watermarks")
-        reads_s = time.perf_counter() - t_d
-        with open(trace) as f:
+        merge_out, d_att, summary, churn, marks = (reads[k] for k in ("merge_out", "att", "summary", "churn", "marks"))
+        reads_s = reads["reads_s"]
+        with open(reads["trace"]) as f:
             events = json.load(f)["traceEvents"]
         lanes = {e["pid"]: e["args"]["name"] for e in events if e.get("ph") == "M" and e.get("name") == "process_name"}
         per_lane = {m: sum(1 for e in events if e.get("ph") == "X" and lanes.get(e.get("pid")) == m) for m in survivors}
@@ -5856,25 +5916,31 @@ def start_read_tier(torch, pool, dev: str = "cuda") -> dict:
         READ_TIMEOUT_S)
 
 
-def storm_over(demo: dict) -> None:
+def storm_over(demo: dict):
     """Wait until `demo`'s storm is over (its supervisor.json is written)
-    or the demo has ended. What runs after this moves none of the demo's
-    timed checks: they read the storm only."""
-    while not (demo["fut"].done() or os.path.exists(os.path.join(demo["rep_dir"], "supervisor.json"))):
+    or the demo has ended; returns that supervisor.json, or None if the
+    demo ended without one. Whether what runs after this may touch a timed
+    check is the demo's own: phases 22's and 23's read the storm only,
+    phase 24's overhead window comes after it."""
+    path = os.path.join(demo["rep_dir"], "supervisor.json")
+    while not (demo["fut"].done() or os.path.exists(path)):
         time.sleep(0.2)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:  # the demos replace it whole
+        return json.load(f)
 
 
 def finish_tier_demo(demo: dict) -> tuple:
     """Wait for `demo` to exit: (its run, its report or None, its
-    supervisor.json or None, {member: worker report}). Its directory is
-    removed."""
-    with demo["tmp"]:
-        run = demo["fut"].result()[demo["name"]]
-        docs = read_reports(demo["rep_dir"]) if os.path.isdir(demo["rep_dir"]) else {}
-        report = None
-        if os.path.exists(demo["out_path"]):
-            with open(demo["out_path"]) as f:
-                report = json.load(f)
+    supervisor.json or None, {member: worker report}). Its directory stays
+    until the caller closes ``demo["tmp"]``."""
+    run = demo["fut"].result()[demo["name"]]
+    docs = read_reports(demo["rep_dir"]) if os.path.isdir(demo["rep_dir"]) else {}
+    report = None
+    if os.path.exists(demo["out_path"]):
+        with open(demo["out_path"]) as f:
+            report = json.load(f)
     workers = {n[len("report-"):]: r for n, r in docs.items() if n.startswith("report-")}
     return run, report, docs.get("supervisor"), workers
 
@@ -5925,7 +5991,8 @@ def phase_write_tier(torch, card: str, demo: dict) -> dict:
     from antidote_ccrdt_tpu_torch.scripts import write_tier_demo
 
     on_card = torch.device(demo["dev"]).type == "cuda"
-    run, rep, sup, workers = finish_tier_demo(demo)
+    with demo["tmp"]:
+        run, rep, sup, workers = finish_tier_demo(demo)
     demo_s = run["exit_t"] - run["spawn_t"]
     if run["rc"] != 0:
         raise AssertionError(f"22: write_tier_demo exited {run['rc']}:\n{run['out'][-8000:]}")
@@ -5974,7 +6041,8 @@ def phase_read_tier(torch, card: str, demo: dict) -> dict:
     from antidote_ccrdt_tpu_torch.scripts import read_tier_demo
 
     on_card = torch.device(demo["dev"]).type == "cuda"
-    run, rep, sup, workers = finish_tier_demo(demo)
+    with demo["tmp"]:
+        run, rep, sup, workers = finish_tier_demo(demo)
     demo_s = run["exit_t"] - run["spawn_t"]
     if rep is None:
         raise AssertionError(f"23: read_tier_demo exited {run['rc']} with no report:\n{run['out'][-8000:]}")
@@ -6010,18 +6078,141 @@ def phase_read_tier(torch, card: str, demo: dict) -> dict:
     return dict(dict.fromkeys(SOURCES, 0), **got)
 
 
+def start_rtrace(torch, pool, dev: str = "cuda") -> dict:
+    """Phase 24's demo, started in `pool` (`start_tier_demo`)."""
+    (pre_s, post_s, window_s), (max_pct, min_cov, min_complete, max_blip_ms) = RTRACE_WINDOWS, RTRACE_BOUNDS
+    return start_tier_demo(torch, pool, "rtrace_demo", dev, [
+        "--shape", RTRACE_SHAPE, "--hold", "--steps", str(RTRACE_STEPS), "--step-sleep", str(RTRACE_STEP_SLEEP),
+        "--storm-prekill-s", str(pre_s), "--storm-postkill-s", str(post_s), "--overhead-window-s", str(window_s),
+        "--max-overhead-pct", str(max_pct), "--min-coverage", str(min_cov), "--min-complete-frac", str(min_complete),
+        "--max-blip-ms", str(max_blip_ms)], RTRACE_TIMEOUT_S)
+
+
+def rtrace_readings(rep: dict, rep_dir: str, victim: str, survivors: list) -> dict:
+    """The port's ccrdt_rtrace over the demo's kept obs directory (no
+    device), three reads at once: the waterfall of the report's
+    dead_reroute trace must show a ``dead_reroute`` row at `victim`; the
+    waterfall of a trace the spill holds that failed over (its hops: a
+    dead_reroute at `victim`, then an attempt answered by a survivor; the
+    report's trace may instead be a session read that the victim alone
+    covered) must show that row and then the survivor's attempt; the
+    attribution must name a p99 dominant bucket. Returns the documents and
+    their seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from antidote_ccrdt_tpu_torch.obs import rtrace
+
+    obs, t0 = os.path.join(rep_dir, "obs"), time.perf_counter()
+
+    def failed_over(tr):
+        hops = tr.get("hops", ())
+        at = next((i for i, h in enumerate(hops) if h.get("k") == "dead_reroute" and h.get("peer") == victim), None)
+        return at is not None and any(h.get("k") == "attempt" and h.get("ok") and h.get("peer") in survivors
+                                      for h in hops[at + 1:])
+
+    over = sorted(t["id"] for t in rtrace.scan_traces(obs) if t.get("outcome") == "ok" and failed_over(t))
+    if not over:
+        raise AssertionError(f"24: no stored trace fails over from {victim} to a survivor")
+    with ThreadPoolExecutor(3) as pool:
+        f_report = pool.submit(run_cli, "ccrdt_rtrace", "waterfall", obs, "--trace", rep["dead_reroute_trace_id"],
+                               "--json")
+        f_over = pool.submit(run_cli, "ccrdt_rtrace", "waterfall", obs, "--trace", over[-1], "--json")
+        f_att = pool.submit(run_cli, "ccrdt_rtrace", "attribute", obs, "--json")
+        report_rows = json.loads(cli_out(f_report.result(), "24 ccrdt_rtrace waterfall"))["waterfall"]
+        over_rows = json.loads(cli_out(f_over.result(), "24 ccrdt_rtrace waterfall"))["waterfall"]
+        att = json.loads(cli_out(f_att.result(), "24 ccrdt_rtrace attribute"))
+
+    def reroute_at(rows):
+        return next((i for i, r in enumerate(rows) if r["name"] == "dead_reroute" and r.get("peer") == victim), None)
+
+    if reroute_at(report_rows) is None:
+        raise AssertionError(f"24: no dead_reroute row at {victim} in {rep['dead_reroute_trace_id']}: {report_rows}")
+    at = reroute_at(over_rows)
+    if at is None or not any(r["name"] == "attempt" and r.get("ok") and r.get("peer") in survivors
+                             for r in over_rows[at + 1:]):
+        raise AssertionError(f"24: the failover waterfall {over[-1]}: {over_rows}")
+    if att.get("p99_dominant_bucket") not in rtrace.BUCKETS:
+        raise AssertionError(f"24: ccrdt_rtrace attribute names no p99 dominant bucket: {att}")
+    return dict(report_waterfall=report_rows, failover_trace_id=over[-1], failover_traces=len(over),
+                failover_waterfall=over_rows, attribute=att, cli_s=time.perf_counter() - t0)
+
+
+def phase_rtrace(torch, card: str, demo: dict) -> dict:
+    """Phase 24: the request-tracing gate. rtrace_demo whole as a
+    subprocess (`start_rtrace`'s `demo`) at RTRACE_SHAPE, each worker's
+    first kernel calls held: all 14 of the demo's checks at RTRACE_BOUNDS,
+    the SIGKILL of the victim with the probe in flight, reports from
+    exactly the three survivors, each survivor's launches of K1c, K2 and K3
+    and its held calls equal to the plain versions, and the port's
+    ccrdt_rtrace over the run's own spill (`rtrace_readings`). Returns the
+    survivors' launches."""
+    from antidote_ccrdt_tpu_torch.scripts import rtrace_demo
+    from antidote_ccrdt_tpu_torch.topo import rendezvous_order
+
+    on_card = torch.device(demo["dev"]).type == "cuda"
+    victim = rendezvous_order("k0", rtrace_demo.MEMBERS)[0]  # the demo's victim
+    survivors = [m for m in rtrace_demo.MEMBERS if m != victim]
+    with demo["tmp"]:
+        run, rep, sup, workers = finish_tier_demo(demo)
+        if rep is None:
+            raise AssertionError(f"24: rtrace_demo exited {run['rc']} with no report:\n{run['out'][-8000:]}")
+        checks = rep["checks"]
+        if not (run["rc"] == 0 and rep["pass"] and len(checks) == 14 and all(checks.values())):
+            tail = run["out"][run["out"].find("FAIL"):] if "FAIL" in run["out"] else run["out"][-4000:]
+            raise AssertionError(f"24: rtrace_demo exited {run['rc']}, failed "
+                                 f"{[k for k, ok in checks.items() if not ok]}: {json.dumps(rep)[:3000]}\n{tail[:6000]}")
+        if not (rep["killed"] == sup["victim"] == victim and f"SIGKILL -> {victim} (probe in flight)" in run["out"]):
+            raise AssertionError(f"24: no SIGKILL of {victim} with the probe in flight: {sup}")
+        if sorted(workers) != survivors:
+            raise AssertionError(f"24: reports from {sorted(workers)}, survivors {survivors}")
+        got_cli = rtrace_readings(rep, demo["rep_dir"], victim, survivors)
+    demo_s = run["exit_t"] - run["spawn_t"]
+    got = survivors_launches(workers, "24", on_card)
+    att = sup["attribution"]
+    log("24 request tracing", card=card, shape=RTRACE_SHAPE, members=rtrace_demo.MEMBERS, steps=RTRACE_STEPS,
+        step_sleep_s=RTRACE_STEP_SLEEP, windows_s=RTRACE_WINDOWS, bounds=RTRACE_BOUNDS, killed=victim,
+        kill_step=sup["kill_step"], checks=checks, traced_reads_per_s=rep["traced_reads_per_sec"],
+        untraced_reads_per_s=rep["untraced_reads_per_sec"], overhead_pct=rep["overhead_pct"],
+        overhead_pairs=sup["pairs"], overhead_calm_pairs=sup["calm_pairs"],
+        coverage_p50=rep["coverage_p50"], coverage_p99_req=rep["coverage_p99_req"],
+        buckets_ms_p50=att.get("buckets_ms_p50"), buckets_ms_p99=att.get("buckets_ms_p99"),
+        total_ms_p50=att.get("total_ms_p50"), total_ms_p99=att.get("total_ms_p99"),
+        p99_dominant_bucket=rep["p99_dominant_bucket"], exemplar_dominant_bucket=rep["exemplar_dominant_bucket"],
+        n_sampled_ok=rep["n_sampled_ok"], complete_frac=rep["complete_frac"],
+        failover_blip_ms=rep["failover_blip_ms"], outcomes=rep["outcomes"], storm_reads=rep["storm_reads"],
+        load_s=rep["load_s"], rtrace_counters=rep["rtrace_counters"], route_faults_fired=rep["route_faults_fired"],
+        dead_reroute_trace_id=rep["dead_reroute_trace_id"],
+        cli_report_waterfall=[(r["name"], r.get("peer")) for r in got_cli["report_waterfall"]],
+        failover_trace_id=got_cli["failover_trace_id"], failover_traces=got_cli["failover_traces"],
+        cli_failover_waterfall=[(r["name"], r.get("peer")) for r in got_cli["failover_waterfall"]],
+        cli_p99_dominant_bucket=got_cli["attribute"]["p99_dominant_bucket"], cli_s=got_cli["cli_s"],
+        per_worker=per_worker(workers), held={m: r["held"] for m, r in workers.items()},
+        kill_to_adoption_s=adoption_after_kill(workers, sup["kill_t"]),
+        confirmed_dead={m: r["confirmed_dead"] for m, r in workers.items()},
+        failover="routers read the supervisor's dead set at once", demo_s=demo_s,
+        storm_end_to_overhead_s=sup["overhead_t0"] - sup["storm_t1"],
+        storm_end_to_exit_s=run["exit_t"] - sup["storm_t1"],
+        storm_s=dict(start=sup["storm_t0"] - run["spawn_t"], end=sup["storm_t1"] - run["spawn_t"]),
+        overhead_window_s=dict(start=sup["overhead_t0"] - run["spawn_t"], end=sup["overhead_t1"] - run["spawn_t"]),
+        launches=got, phase_s=time.perf_counter() - demo["t0"])
+    return dict(dict.fromkeys(SOURCES, 0), **got)
+
+
 def middle_phases(torch, card: str, root: str) -> tuple:
     """Phases 11-16 and 18-20 as main() runs them: ({path name: its
     launches}, 17's worlds, 21a's fleets); the worlds' checkpoints and
     the fleets' files stay in `root`, which the caller keeps until phase
     17 has read them. Worker processes run beside in-process phases that
     no wall clock gates: phase 18's fleets beside phases 11 and 16, 20b's
-    topo_demo beside phase 12 and phase 19's fleets and law checks beside
-    14a (both drills on a simulated network that keeps virtual time),
-    17a's and 17b's worlds and then 21a's healthy and durability fleets
-    beside 14c (the working set's ownership is fixed); phases 17, 18, 19,
-    20 and 21 read them. The fleets' sequential references are made
-    beforehand: no kernel runs in this process beside a phase's counts."""
+    topo_demo and then 21a's healthy and durability fleets beside phase 12
+    and phase 19's fleets and law checks beside 14a (both drills on a
+    simulated network that keeps virtual time), 17a's and 17b's worlds and
+    then 19d's reads of 18a's spill beside 14c (the working set's
+    ownership is fixed); phases 17, 18, 19, 20 and 21 read them. The
+    fleets' sequential references are made beforehand: no kernel runs in
+    this process beside a phase's counts. Phases 13 and 14 run without
+    their reduced twins (main() runs 13's beside phase 24's start-up and
+    14's beside phase 22's reap)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -6036,23 +6227,28 @@ def middle_phases(torch, card: str, root: str) -> tuple:
         out["durable host (phase 11)"] = phase_durable_host(torch, card)
         out["mesh (phase 16)"] = phase_mesh(torch, card)
         out["elastic workers (phase 18)"], drill = f_elastic.result()
-        f_topo = beside.submit(run_topo, "cuda")
+        cert_reference = reference_digest("topk_rmv", device="cpu")
+
+        def topo_then_cert_fleets():
+            return run_topo("cuda"), run_cert_fleets("cuda", cert_reference)
+
+        f_12 = beside.submit(topo_then_cert_fleets)
         out["gossip (phase 12)"] = phase_gossip(torch, card)
         out["served fleet (phase 13)"] = phase_fleet(torch, card)
         f_fleets = beside.submit(run_obs_fleets, "cuda", fleets_root, demo_reference_crc(torch))
-        cert_reference = reference_digest("topk_rmv", device="cpu")
 
-        def worlds_then_cert_fleets():
-            return run_worlds("cuda", worlds_root), run_cert_fleets("cuda", cert_reference)
+        def worlds_then_spill_reads():
+            return run_worlds("cuda", worlds_root), spill_reads(drill, spill)
 
         f_14c = []
         out["overlap and pager (phase 14)"] = phase_overlap_pager(
-            torch, card, before_14c=lambda: f_14c.append(beside.submit(worlds_then_cert_fleets)))
+            torch, card, before_14c=lambda: f_14c.append(beside.submit(worlds_then_spill_reads)))
         out["bridge (phase 15)"] = phase_bridge(torch, card)
-        worlds, cert_fleets = f_14c[0].result()
-        out["observability fleets (phase 19)"] = phase_observability(torch, card, drill, f_fleets.result())
+        worlds, reads = f_14c[0].result()
+        out["observability fleets (phase 19)"] = phase_observability(torch, card, drill, f_fleets.result(), reads)
         del drill
-        out["anti-entropy gates (phase 20)"] = phase_antientropy(torch, card, f_topo.result())
+        topo, cert_fleets = f_12.result()
+        out["anti-entropy gates (phase 20)"] = phase_antientropy(torch, card, topo)
     return out, worlds, cert_fleets
 
 
@@ -6091,19 +6287,35 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root, ThreadPoolExecutor(1) as pool:  # root: 17's worlds
         mid, worlds, cert_fleets = middle_phases(torch, card, root)
         # Phases 22 and 23, each demo's storm with nothing beside it (three
-        # of their checks read the wall clock), phase 17 beside 22's reap
-        # and phase 21 beside 23's (the survivors' detector, adoption and
-        # final barrier, which no check times). 23 starts once 22's demo
-        # has exited.
+        # of their checks read the wall clock), phase 17 and then phase 14's
+        # reduced twin beside 22's reap and phase 21 beside 23's (the
+        # survivors' detector, adoption and final barrier, which no check
+        # times). 23 starts once 22's demo has exited.
         write = start_write_tier(torch, pool)
         storm_over(write)
         mid["multihost (phase 17)"] = phase_multihost(torch, card, worlds)
+        overlap_pager_reduced(torch, card)
         mid["write tier (phase 22)"] = phase_write_tier(torch, card, write)
         read = start_read_tier(torch, pool)
         storm_over(read)
         mid["certified convergence (phase 21)"] = phase_certified(torch, card, cert_fleets)
         mid["read tier (phase 23)"] = phase_read_tier(torch, card, read)
         del worlds, cert_fleets
+        # Phase 24 once 23's demo has exited: phase 13's reduced twin beside
+        # its start-up, which must end before the storm begins; the storm,
+        # the wait for the survivors' finals and the overhead window with
+        # nothing beside them (five checks read the wall clock).
+        tracing = start_rtrace(torch, pool)
+        t0 = time.time()
+        fleet_reduced(torch, card)
+        t1 = time.time()
+        sup = storm_over(tracing)
+        if sup is not None:
+            if t1 > sup["storm_t0"]:
+                raise AssertionError(f"24: phase 13's reduced twin ran {t1 - sup['storm_t0']:.1f} s into the storm")
+            log("24 start-up", card=card, beside="13 reduced", twin_s=t1 - t0,
+                twin_end_to_storm_s=sup["storm_t0"] - t1)
+        mid["request tracing (phase 24)"] = phase_rtrace(torch, card, tracing)
     # `launches` is the count of the path that drives the kernel first
     # (the main path, phase 4, for K1, K1c, K2 and K3 at W <= 8); every
     # path's own count, each read from 0, is in `launches_by_path`.

@@ -14,6 +14,7 @@ Real separate OS processes on the CPU over ``gloo``, as
   (2, 4, 1), (3, 2, 1) (the non-power-of-two fallback across processes)
   and (2, 2, 2) through ``process_local_shards``;
 * the R != n_dcn * n_dc error is JAX's, type and message;
+* a world's port lies below the kernel's range of ephemeral ports;
 * chip_smoke.py's phase 17 at small shapes on the CPU.
 """
 
@@ -144,6 +145,24 @@ def test_key_axis_of_two_through_process_local_shards(tmp_path):
     want = jax_reconciled(2, 4, n_key=2)
     assert want[".slot_score"].shape[:2] == (4, 2)
     assert_blocks_equal_jax(world, want, 2)
+
+
+def test_world_port_lies_below_the_ephemeral_range(monkeypatch, tmp_path):
+    """A world's port is free and, where the kernel names its ephemeral
+    range, below it, where no other process's outgoing connection takes
+    it before rank 0 binds it; without that file the system picks."""
+    import socket
+
+    ports = [demo.free_port() for _ in range(16)]
+    for port in ports:
+        with socket.socket() as s:
+            s.bind(("localhost", port))
+    if os.path.exists(demo.EPHEMERAL_RANGE):
+        with open(demo.EPHEMERAL_RANGE) as f:
+            low = int(f.read().split()[0])
+        assert low <= 10_000 or all(10_000 <= p < low for p in ports), (low, ports)
+    monkeypatch.setattr(demo, "EPHEMERAL_RANGE", str(tmp_path / "absent"))
+    assert 0 < demo.free_port() < 65_536
 
 
 def test_replica_count_error_is_jax_s():

@@ -319,5 +319,6 @@ def test_chip_smoke_observability_phase_holds_on_the_cpu(monkeypatch, tmp_path):
                                     str(tmp_path / "a"))
     fleets_root = str(tmp_path / "fleets")
     fleets = ns["run_obs_fleets"]("cpu", fleets_root, ns["demo_reference_crc"](torch))
-    launches = ns["phase_observability"](torch, "cpu", drill, fleets, dev="cpu")
+    reads = ns["spill_reads"](drill, str(tmp_path))
+    launches = ns["phase_observability"](torch, "cpu", drill, fleets, reads, dev="cpu")
     assert launches == {n: 0 for n in ns["SOURCES"]}  # the CPU's plain versions count nothing

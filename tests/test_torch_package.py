@@ -56,11 +56,13 @@ NEW_MODULES = [
     "scripts.write_tier_demo",
     # the fleet read tier
     "scripts.read_tier_demo",
+    # the request-tracing gate
+    "scripts.rtrace_demo",
 ]
 WORKER_SCRIPTS = ["elastic_demo", "net_gossip_demo", "crash_recovery_demo",
                   "ccrdt_trace", "ccrdt_spans", "ccrdt_rtrace", "ccrdt_devprof", "ccrdt_audit",
                   "obs_dashboard", "spans_demo", "overlap_demo", "partition_demo", "topo_demo",
-                  "audit_demo", "multichip_demo", "write_tier_demo", "read_tier_demo"]
+                  "audit_demo", "multichip_demo", "write_tier_demo", "read_tier_demo", "rtrace_demo"]
 
 
 def test_import_pulls_in_no_jax():
@@ -186,6 +188,22 @@ def test_read_tier_demo_raises_without_a_card_unless_the_cpu_is_asked_for(monkey
         read_tier_demo.main(["--out", "unused.json"])
     with pytest.raises(ValueError):
         read_tier_demo.run_fleet(device="cpu", shape="not,a,width")
+
+
+def test_rtrace_demo_raises_without_a_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """The request-tracing drill and its CLI resolve the device before any
+    worker starts: without a card they raise; with ``--device cpu`` they
+    get past it (to the width, here a bad one)."""
+    from antidote_ccrdt_tpu_torch.scripts import rtrace_demo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(rtrace_demo, "_spawn_fleet", lambda *a, **kw: pytest.fail("a worker was started"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rtrace_demo.run_fleet()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rtrace_demo.main(["--out", "unused.json"])
+    with pytest.raises(ValueError):
+        rtrace_demo.run_fleet(device="cpu", shape="not,a,width")
 
 
 def test_registry_knows_topk_rmv():
